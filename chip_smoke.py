@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the port's DepthPipeline on one CUDA card and check it.
+"""Drive the port's DepthPipeline and its tile-parallel engines on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
-Three paths run at 1280x720, 320 disparities: the full search with the LR
-check off (the first slice's configuration), the full search with it on
-(``SGMParams(num_disparities=320)``), and the production path
-(``production_preset()``: hier2, R=32 windows, census arbitration and fill).
-Phases, each of which raises (exit code non-zero, no result line) on failure:
+Three paths run through ``DepthPipeline`` at 1280x720, 320 disparities: the
+full search with the LR check off (kept so that its time stays comparable), the
+full search with it on (``SGMParams(num_disparities=320)``), and the
+production path (``production_preset()``: hier2, R=32 windows, census
+arbitration and fill). Then the ``parallel`` package runs on a mesh of four
+row tiles on the one card, and the engine's ``aggregate``/``_wta`` run
+under the kernel impl. Phases, each of which raises (exit code non-zero,
+no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the eight CUDA kernels of ``stereovision_tpu_torch/ops/csrc`` from
+2. build the ten CUDA kernels of ``stereovision_tpu_torch/ops/csrc`` from
    the checkout, one nvcc per source, all at once;
 3. run one frame of each path recording every kernel launch's inputs, then
    replay each recorded launch against the kernel's plain PyTorch version on
@@ -24,7 +28,27 @@ Phases, each of which raises (exit code non-zero, no result line) on failure:
 5. time each path (3 warm-up frames, 20 timed, CUDA events), each kernel's
    launches of one frame of each path (replayed on their recorded inputs)
    beside their bound, plain version and (for shift_gather)
-   ``torch.gather``, and the stages around them.
+   ``torch.gather``, and the stages around them;
+6. the exact row-tiled engine (``SGMParams(num_disparities=320)``) on
+   ``make_mesh(frame=1, tile=4, devices=["cuda:0"] * 4)``: the sweep
+   strategy on 2 flat-rig frames, the pipelined one on 4, each recorded
+   (every launch replayed against its plain version: exact) and counted
+   (the chain mode must launch T*T times a frame, or (B+T-1)*T times), and
+   each frame equal bit for bit to the single-device engine on the card;
+7. ``sharded_disparity`` with ``production_preset()`` on the same mesh,
+   recorded (every launch replayed against its plain version: exact) and
+   counted (each of the eight kernels must launch), held to the
+   reference's seam tolerance against the single-device frame on the
+   pixels the search matched (the census fill's column scans cross tile
+   seams without bound, in the reference's engine as here; the filled
+   pixels' agreement is printed);
+8. ``sgm.aggregate`` and ``sgm._wta`` under the kernel impl on the flat
+   rig's float32 cost volume (720x1280x320), counted, equal to their plain
+   forms and each launch to its plain version;
+9. time the two exact strategies (ms per frame; four tiles share one card,
+   so this is no scaling number), the chain-mode launches, ``aggregate_dir``
+   and ``wta``, each beside its bound, and the host time of one launch
+   with and without a device switch (:func:`launch_host_us`).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card; before that, one ``{"kernels": [...]}`` line.
@@ -47,6 +71,8 @@ BOX = (200, 600, 320, 400)  # y0, x0 in the left image, height, width
 FOCAL, TX_CM = 700.0, -6.0
 SEED = 0
 WARMUP, FRAMES = 3, 20
+TILES = 4                          # row tiles of the mesh, all on cuda:0
+EXACT_FRAMES, PIPE_FRAMES = 2, 4   # batches of the sweep and the pipelined strategy
 # H100 SXM peaks (NVIDIA data sheet): device memory rate and the float32
 # rate outside the tensor cores, applied to these kernels' compares, adds
 # and bit operations
@@ -64,6 +90,13 @@ KERNELS = {
     "shift_gather": ("shift_gather.cu", 1554, "shift_gather_plain"),
     "speckle_counts": ("speckle.cu", 1655, "speckle_counts_plain"),
     "nearest_valid_lohi": ("nearest_lohi.cu", 1770, "nearest_valid_lohi_plain"),
+}
+# the kernels that only the parallel engines and the engine's aggregate/_wta
+# reach; "aggregate_dual_chain" is aggregate_dual's chain mode
+SLICE3_KERNELS = {
+    "aggregate_dual_chain": ("aggregate.cu", 866, "aggregate_dual_plain"),
+    "aggregate_dir": ("aggregate_dir.cu", 595, "aggregate_dir_plain"),
+    "wta": ("wta.cu", 1701, "wta_plain"),
 }
 # stages of the production frame, timed by replaying their recorded calls
 STAGES = {
@@ -108,9 +141,9 @@ def texture(rng, h, w):
     return (sum(raw[i:i + h, j:j + w] for i in range(5) for j in range(5)) / 25).astype(np.float32)
 
 
-def flat_pair():
+def flat_pair(seed: int = SEED):
     """A textured 1280x720 pair whose right view is the left shifted by SHIFT."""
-    base = texture(np.random.default_rng(SEED), H, W + SHIFT)
+    base = texture(np.random.default_rng(seed), H, W + SHIFT)
     return base[:, :W].copy(), base[:, SHIFT:SHIFT + W].copy()
 
 
@@ -163,7 +196,17 @@ def work(name, args, kw):
     if name == "aggregate_dual":
         out_dtype = kw.get("out_dtype", args[4] if len(args) > 4 else None)
         itemsize = 1 if out_dtype is None else out_dtype.itemsize
-        return t.numel() * (1 + 2 * itemsize), 2 * 7 * t.numel()
+        nbytes = t.numel() * (1 + 2 * itemsize)
+        if kw.get("boundary") is not None:  # chain mode: two seed rows in, two carries out
+            nbytes += 4 * t.shape[1] * t.shape[2] * 4
+            if kw.get("cost_b") is not None:
+                nbytes += t.numel()
+        return nbytes, 2 * 7 * t.numel()
+    if name == "aggregate_dir":
+        with_acc = kw.get("acc", args[5] if len(args) > 5 else None) is not None
+        return 4 * t.numel() * (2 + with_acc), (7 + with_acc) * t.numel()
+    if name == "wta":
+        return 4 * t.numel() + 20 * t.shape[0] * t.shape[1], 6 * t.numel()
     if name == "wta_stats_from_duals":
         hw = t.shape[0] * t.shape[1]
         return 2 * t.numel() * t.element_size() + 20 * hw, 9 * t.numel()
@@ -215,6 +258,271 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, name, fn in reversed(self.saved):
             setattr(mod, name, fn)
+
+
+def wrapper_of(sgm_cuda, kname):
+    """The wrapper behind a launch-count name (the chain mode's is
+    aggregate_dual)."""
+    return getattr(sgm_cuda, "aggregate_dual" if kname == "aggregate_dual_chain" else kname)
+
+
+def plain_of(sgm_cuda, kname):
+    return getattr(sgm_cuda, (KERNELS.get(kname) or SLICE3_KERNELS[kname])[2])
+
+
+def parity(torch, sgm_cuda, calls, what: str) -> float:
+    """Replay each recorded launch (wrapper name → [(args, kwargs)]) through
+    the kernel and its plain version, each on its own copy of the inputs
+    (``aggregate_dir`` adds onto ``acc`` in place); all must be exact.
+    Returns the largest error (0.0)."""
+    def fresh(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, tuple):
+            return tuple(fresh(x) for x in v)
+        return v
+
+    worst = 0.0
+    for kname, kcalls in calls.items():
+        for args, kw in kcalls:
+            got = wrapper_of(sgm_cuda, kname)(*fresh(args), **fresh(kw))
+            want = plain_of(sgm_cuda, kname)(*fresh(args), **fresh(kw))
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"{kname}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+                err = (g.double() - w.double()).abs().max().item() if g.numel() else 0.0
+                check(err == 0.0, f"{kname} differs from its plain version on {what}: "
+                                  f"max abs err {err}")
+                worst = max(worst, err)
+        if kcalls:
+            print(f"parity {what} {kname}: {len(kcalls)} launch(es) exact")
+        torch.cuda.synchronize()
+    return worst
+
+
+def split_chain(calls):
+    """aggregate_dual's recorded launches → the unseeded ones and the chain
+    mode's, under their launch-count names."""
+    duals = calls.pop("aggregate_dual", [])
+    calls["aggregate_dual"] = [c for c in duals if c[1].get("boundary") is None]
+    calls["aggregate_dual_chain"] = [c for c in duals if c[1].get("boundary") is not None]
+    return calls
+
+
+def tally(calls):
+    """Bytes and operations of recorded launches (chain launches under
+    aggregate_dual's work)."""
+    nbytes = ops = 0
+    for kname, kcalls in calls.items():
+        for a, kw in kcalls:
+            b, o = work("aggregate_dual" if kname == "aggregate_dual_chain" else kname, a, kw)
+            nbytes, ops = nbytes + b, ops + o
+    return nbytes, ops
+
+
+def launch_host_us(torch, sgm_cuda, n: int = 2000):
+    """Host µs per launch of shift_gather on one 32-pixel row (host-bound):
+    its C entry called bare on the current stream, the same under
+    ``torch.cuda.device`` (the device switch ``sgm_cuda._launch`` makes only
+    for a tensor off the current device), and the whole wrapper. Run in the
+    order ABCCBA; the faster of each pair."""
+    src = torch.zeros((1, 32), device="cuda")
+    off = torch.zeros((1, 32), dtype=torch.int32, device="cuda")
+    out = torch.empty_like(src)
+    sgm_cuda.shift_gather(src, off, 1)  # loads the kernel's library
+    fn, dev = sgm_cuda._fns["shift_gather"], src.device
+    args = (src.data_ptr(), off.data_ptr(), out.data_ptr(), 1, 1, 32, 1)
+
+    def switched():
+        with torch.cuda.device(dev):
+            fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+    forms = {"bare": lambda: fn(*args, torch.cuda.current_stream().cuda_stream),
+             "switched": switched, "wrapper": lambda: sgm_cuda.shift_gather(src, off, 1)}
+    us = {}
+    for name in list(forms) + list(reversed(forms)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            forms[name]()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        us[name] = min(us.get(name, t), t)
+    return us
+
+
+def parallel_phases(torch, card: str):
+    """Phases 6-9; returns the kernels-line rows of the three kernels."""
+    from stereovision_tpu_torch import parallel
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.stereo import SGMParams, production_preset, sgm
+
+    names = list(KERNELS) + ["aggregate_dir", "wta"]
+    targets = [(sgm_cuda, n) for n in names]
+    p = SGMParams(num_disparities=D)
+    mesh = parallel.make_mesh(frame=1, tile=TILES, devices=["cuda:0"] * TILES)
+    pairs = [flat_pair(SEED + 10 + i) for i in range(PIPE_FRAMES)]
+    lefts, rights = np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+    singles = [sgm.compute_disparity(a, b, p) for a, b in pairs]
+    torch.cuda.synchronize()
+
+    # -- 6. the exact engine: recorded, replayed, counted, against one device
+    strategies = {
+        "sweep": (parallel.sharded_disparity_exact, EXACT_FRAMES, EXACT_FRAMES * TILES * TILES),
+        "pipelined": (parallel.sharded_disparity_exact_pipelined, PIPE_FRAMES,
+                      (PIPE_FRAMES + TILES - 1) * TILES),
+    }
+    must = ("census_words", "cost_volume", "aggregate_dual", "aggregate_dual_chain",
+            "right_disparity", "shift_gather", "speckle_counts")
+    runs = {}
+    errs = {"aggregate_dual_chain": 0.0}
+    for sname, (fn, B, chain_launches) in strategies.items():
+        with Recorder(torch, targets) as rec:
+            fn(lefts[:B], rights[:B], p, mesh)
+            torch.cuda.synchronize()
+        calls = split_chain(rec.calls)
+        err = parity(torch, sgm_cuda, calls, f"exact {sname}")
+        errs["aggregate_dual_chain"] = max(errs["aggregate_dual_chain"], err)
+        sgm_cuda.reset_launch_counts()
+        disp, valid = fn(lefts[:B], rights[:B], p, mesh)
+        torch.cuda.synchronize()
+        counts = sgm_cuda.launch_counts()
+        print(f"launches in one {sname} run ({B} frames, {TILES} tiles): {counts}")
+        check(counts["aggregate_dual_chain"] == chain_launches,
+              f"{sname}: {counts['aggregate_dual_chain']} chain launches, not {chain_launches}")
+        for k in must:
+            check(counts[k] > 0, f"kernel {k} was not launched by the {sname} strategy")
+        check(disp.shape == (B, H, W) and disp.device == mesh.first, f"{sname}: output shape")
+        for i in range(B):
+            check(torch.equal(valid[i], singles[i][1]) and torch.equal(disp[i], singles[i][0]),
+                  f"{sname}: frame {i} differs from the single-device engine")
+        core = disp[:, 20:-20, SHIFT + 20:-20][valid[:, 20:-20, SHIFT + 20:-20]]
+        med = core.median().item()
+        check(abs(med - SHIFT) < 0.5, f"{sname}: median disparity {med} vs {SHIFT}")
+        print(f"exact {sname}: {B} frames bit-exact against the single-device engine; valid "
+              f"{valid.float().mean().item():.4f}, median disparity {med} (true {SHIFT})")
+        runs[sname] = (fn, B, counts, calls["aggregate_dual_chain"], tally(calls))
+        del calls, rec, disp, valid
+    del singles
+
+    # -- 7. the production preset through the approximate row tiles --------
+    pp = production_preset()
+    left2, right2 = two_plane_pair()
+    d1, _ = sgm.compute_disparity(left2, right2, pp)
+    # the pixels the search matched: valid before the census fill, which
+    # the same preset without the fill leaves as they are
+    _, matched = sgm.compute_disparity(left2, right2, dataclasses.replace(pp, fill_invalid=False))
+    # the haloed 226-row slabs take shapes no other phase gives (a 75-row
+    # coarse search, the sequential refine): every launch against its plain version
+    with Recorder(torch, targets) as rec:
+        parallel.sharded_disparity(left2[None], right2[None], pp, mesh)
+        torch.cuda.synchronize()
+    parity(torch, sgm_cuda, rec.calls, "sharded production")
+    del rec
+    sgm_cuda.reset_launch_counts()
+    disp, valid = parallel.sharded_disparity(left2[None], right2[None], pp, mesh)
+    torch.cuda.synchronize()
+    counts = sgm_cuda.launch_counts()
+    print(f"launches in one production frame on {TILES} tiles: {counts}")
+    for k in KERNELS:
+        check(counts[k] > 0, f"kernel {k} was not launched by the sharded production frame")
+    near = (disp[0] - d1).abs() < 1.0
+    close = near[matched].float().mean().item()
+    check(bool(valid.all()), "sharded production: the fill_invalid contract broke")
+    # the reference's seam tolerance, on the matched pixels: the fill's
+    # column scans reach across tile seams without bound, which no halo covers
+    check(close > 0.95, f"sharded production: {close} of the matched pixels within 1 px of "
+                        "the single-device frame")
+    prod_ms = cuda_ms(torch, lambda: parallel.sharded_disparity(left2[None], right2[None], pp,
+                                                                mesh), 3)
+    print(f"sharded production ({TILES} tiles on one card): {close:.4f} of the matched pixels "
+          f"({matched.float().mean().item():.4f} of the frame) within 1 px of the single-device "
+          f"frame (tolerance 0.95); all pixels {near.float().mean().item():.4f}, filled ones "
+          f"{near[~matched].float().mean().item():.4f}; {prod_ms:.3f} ms/frame, card {card}")
+    del disp, valid, d1, matched, near
+
+    # -- 8. aggregate and _wta under the kernel impl ------------------------
+    left, right = (torch.as_tensor(a, device="cuda") for a in pairs[0])
+    cost = sgm.census_cost_volume(left, right, p)
+    check(cost.shape == (H, W, D) and cost.dtype == torch.float32, "cost volume")
+    vol_targets = [(sgm_cuda, "aggregate_dir"), (sgm_cuda, "wta")]
+    with Recorder(torch, vol_targets) as rec:
+        s = sgm.aggregate(cost, p)
+        sgm._wta(s, p)
+        torch.cuda.synchronize()
+    vol_calls = rec.calls
+    sgm_cuda.reset_launch_counts()
+    s = sgm.aggregate(cost, p)
+    got = sgm._wta(s, p)
+    torch.cuda.synchronize()
+    vol_counts = sgm_cuda.launch_counts()
+    print(f"launches of aggregate + _wta at {H}x{W}x{D}: {vol_counts}")
+    check(vol_counts["aggregate_dir"] == 4 and vol_counts["wta"] == 1,
+          "aggregate/_wta under the kernel impl did not launch aggregate_dir 4x and wta once")
+    px = dataclasses.replace(p, impl="xla")
+    s_x = sgm.aggregate(cost, px)
+    check(torch.equal(s, s_x), "aggregate under the kernel impl differs from the plain scan")
+    for g, w_ in zip(got, sgm._wta(s_x, px)):
+        check(torch.equal(g, w_), "_wta under the kernel impl differs from the plain form")
+    del s_x
+    errs.update({k: parity(torch, sgm_cuda, {k: vol_calls[k]}, f"aggregate/_wta {k}")
+                 for k in ("aggregate_dir", "wta")})
+    print(f"aggregate + _wta (kernel impl) equal the plain forms on the card at {H}x{W}x{D}")
+
+    # -- 9. timing -----------------------------------------------------------
+    def replay(fn, calls):
+        return lambda: [fn(*a, **kw) for a, kw in calls]
+
+    for sname, (fn, B, counts, _, (nb, ops)) in runs.items():
+        ms = cuda_ms(torch, lambda: fn(lefts[:B], rights[:B], p, mesh), 3) / B
+        b_ms, b_by = bound_ms(nb, ops)
+        print(f"frame exact {sname}: {ms:.3f} ms/frame over {B} frames ({W}x{H}, D={D}, "
+              f"{TILES} row tiles sharing one card: not a scaling number; host-to-device copy "
+              f"included), its kernels' bound {b_ms / B:.4f} ms/frame ({b_by}), card {card}")
+    rows = []
+    chain = runs["pipelined"][3]
+    timed = {"aggregate_dual_chain": (sgm_cuda.aggregate_dual, chain,
+                                      runs["pipelined"][2]["aggregate_dual_chain"],
+                                      f"the pipelined run's {len(chain)} chain launches "
+                                      f"({PIPE_FRAMES} frames, {TILES} tiles), replayed"),
+             "aggregate_dir": (sgm_cuda.aggregate_dir, vol_calls["aggregate_dir"],
+                               vol_counts["aggregate_dir"],
+                               f"sgm.aggregate's 4 launches at {H}x{W}x{D} float32, replayed"),
+             "wta": (sgm_cuda.wta, vol_calls["wta"], vol_counts["wta"],
+                     f"sgm._wta's launch at {H}x{W}x{D} float32, replayed")}
+    one = chain[:1]
+    one_ms = cuda_ms(torch, replay(sgm_cuda.aggregate_dual, one), 20, warmup=3)
+    b1 = bound_ms(*tally({"aggregate_dual_chain": one}))
+    print(f"kernel aggregate_dual_chain: one launch on a {tuple(one[0][0][0].shape)} slab with "
+          f"cost_b: {one_ms:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
+    for a, kw in vol_calls["aggregate_dir"]:
+        l_ms = cuda_ms(torch, replay(sgm_cuda.aggregate_dir, [(a, kw)]), 5, warmup=1)
+        lb = bound_ms(*tally({"aggregate_dir": [(a, kw)]}))
+        print(f"kernel aggregate_dir axis {kw.get('axis')} reverse {kw.get('reverse', False)} "
+              f"acc {kw.get('acc') is not None}: {l_ms:.4f} ms, bound {lb[0]:.4f} ms ({lb[1]})")
+    for kname, (fn, calls, n_launches, how) in timed.items():
+        ms = cuda_ms(torch, replay(fn, calls), 5 if kname == "aggregate_dir" else 20, warmup=1)
+        plain_ms = cuda_ms(torch, replay(plain_of(sgm_cuda, kname), calls), 1, warmup=0)
+        nbytes, ops = tally({kname: calls})
+        b_ms, b_by = bound_ms(nbytes, ops)
+        print(f"kernel {kname}: {ms:.4f} ms for {len(calls)} launches ({how}), bound "
+              f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), "
+              f"plain {plain_ms:.2f} ms")
+        src, line, _ = SLICE3_KERNELS[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}",
+            "replaces": f"{REPLACES}:{line}", "launches": n_launches,
+            "max_abs_err": errs[kname], "parity": "exact", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "timed_as": how,
+        })
+    rows[0]["launches_sweep"] = runs["sweep"][2]["aggregate_dual_chain"]
+    us = launch_host_us(torch, sgm_cuda)
+    print(f"launch host time: {us['bare']:.2f} µs bare, {us['switched']:.2f} µs under "
+          f"torch.cuda.device, {us['wrapper']:.2f} µs through the shift_gather wrapper "
+          f"(on the current device: no switch), card {card}")
+    return rows
 
 
 def main() -> int:
@@ -270,28 +578,8 @@ def main() -> int:
             pipes[name](left_np, right_np)
             torch.cuda.synchronize()
         recorded[name] = rec.calls
-    errs = {k: 0.0 for k in KERNELS}
-    for path, calls in recorded.items():
-        for kname in KERNELS:
-            plain = getattr(sgm_cuda, KERNELS[kname][2])
-            seen = set()
-            for args, kw in calls[kname]:
-                got = getattr(sgm_cuda, kname)(*args, **kw)
-                want = plain(*args, **kw)
-                got = got if isinstance(got, tuple) else (got,)
-                want = want if isinstance(want, tuple) else (want,)
-                for g, w in zip(got, want):
-                    check(g.shape == w.shape and g.dtype == w.dtype,
-                          f"{kname}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-                    err = (g.double() - w.double()).abs().max().item() if g.numel() else 0.0
-                    check(err == 0.0, f"{kname} differs from its plain version on {path}: "
-                                      f"max abs err {err}")
-                    errs[kname] = max(errs[kname], err)
-                seen.add(tuple(tuple(a.shape) for a in args if torch.is_tensor(a)))
-            if calls[kname]:
-                print(f"parity {path} {kname}: {len(calls[kname])} launch(es) exact, "
-                      f"shapes {sorted(seen)}")
-        torch.cuda.synchronize()
+    errs = {k: max(parity(torch, sgm_cuda, {k: calls[k]}, path)
+                   for path, calls in recorded.items()) for k in KERNELS}
     # int16 dual volumes (a census with n_bits + P2 > 127) take the same
     # statistics kernel: seeded volumes at the refine stack's and the full
     # search's shapes
@@ -443,6 +731,10 @@ def main() -> int:
                     "timed_as": "the production frame's launches, replayed on their inputs",
                 })
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
+    del recorded, prod
+    torch.cuda.empty_cache()
+    rows += parallel_phases(torch, card)
+    check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS), "a kernel row is missing")
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

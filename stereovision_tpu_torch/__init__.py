@@ -7,6 +7,8 @@ A second package beside the JAX one, mirroring its layout and names:
               PyTorch version
 - ``stereo``  the disparity engine (census cost + semi-global aggregation)
 - ``io``      the calibration store
+- ``parallel`` the (frame, tile) device mesh and the sharded disparity
+              engines, approximate and exact
 - ``pipeline`` rectification + disparity + metric depth
 
 The JAX package stays the reference: every part of the port is tested

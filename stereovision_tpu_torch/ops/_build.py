@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 KERNELS = ("census", "cost", "aggregate", "wta_stats", "right_disparity", "shift_gather",
-           "speckle", "nearest_lohi")
+           "speckle", "nearest_lohi", "aggregate_dir", "wta")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -15,6 +15,18 @@
 // with n[-1] and n[D] at +BIG. The carry is never clamped; the int8 store
 // clamps at 127 explicitly (a float -> int8 conversion does not saturate).
 //
+// Chain mode (axis 0 only; the cross-tile vertical chain of
+// parallel/disparity_exact): each direction starts from a (W, D) float32
+// min-normalised seed row (bf forward, bb backward) instead of L = c, so its
+// first row takes the step too (a zero seed gives c + min(0, P2, P1) = c, a
+// fresh start), and writes its normalised carry after its last row (row H-1
+// forward, row 0 backward) to ff / fb, the next tile's seed. The backward
+// scan may read another volume (cost_b: the pipelined chain aggregates a
+// different frame in each direction). The TPU kernel pads the scan to its
+// block multiple (forward at the end, backward at the front) so that both
+// scans start on real rows; a warp here walks exactly the H rows and needs
+// no padding.
+//
 // Bound on this card: bytes per launch, read H*W*D + write 2*H*W*D*itemsize
 // (885 MB at 1280x720, D=320, int8: ~0.26 ms at 3.35 TB/s). But each line's
 // steps form a serial chain, so the latency of one step times the line
@@ -26,7 +38,8 @@
 // latency floor of a step -- is a local min over V values plus a five-round
 // __shfl_xor butterfly. The next step's cost bytes are loaded before the
 // current step's arithmetic, so the load latency overlaps it. Lanes past D
-// carry cost BIG, which never reaches a real lane's min or neighbour term.
+// carry cost BIG (and seed BIG), which never reaches a real lane's min or
+// neighbour term.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,8 +56,10 @@ __device__ __forceinline__ OutT store_value(float l, bool clamp) {
 
 template <int V, typename OutT>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
-agg_dual_kernel(const int8_t* __restrict__ cost, OutT* __restrict__ out_f,
-                OutT* __restrict__ out_b, int H, int W, int D, int axis, float p1, float p2,
+agg_dual_kernel(const int8_t* __restrict__ cost_f, const int8_t* __restrict__ cost_b,
+                const float* __restrict__ seed_f, const float* __restrict__ seed_b,
+                OutT* __restrict__ out_f, OutT* __restrict__ out_b, float* __restrict__ final_f,
+                float* __restrict__ final_b, int H, int W, int D, int axis, float p1, float p2,
                 int clamp) {
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -55,15 +70,20 @@ agg_dual_kernel(const int8_t* __restrict__ cost, OutT* __restrict__ out_f,
   const int S = axis == 0 ? H : W;
   const long long step = axis == 0 ? (long long)W * D : (long long)D;
   const long long base = axis == 0 ? (long long)line * D : (long long)line * W * D;
+  const int8_t* cost = dir ? cost_b : cost_f;
   OutT* out = dir ? out_b : out_f;
+  const float* seed = dir ? seed_b : seed_f;  // chain mode: axis 0, line = column
+  float* final_carry = dir ? final_b : final_f;
   const int ds = dir ? -1 : 1;
   int s = dir ? S - 1 : 0;
   const int d0 = lane * V;
 
   float c[V], cn[V], n[V], l[V];
 #pragma unroll
-  for (int v = 0; v < V; ++v)
+  for (int v = 0; v < V; ++v) {
     c[v] = d0 + v < D ? (float)cost[base + s * step + d0 + v] : kBig;
+    n[v] = seed != nullptr && d0 + v < D ? seed[(long long)line * D + d0 + v] : kBig;
+  }
 
   for (int it = 0; it < S; ++it) {
     if (it + 1 < S) {
@@ -71,7 +91,7 @@ agg_dual_kernel(const int8_t* __restrict__ cost, OutT* __restrict__ out_f,
 #pragma unroll
       for (int v = 0; v < V; ++v) cn[v] = d0 + v < D ? (float)cost[off + d0 + v] : kBig;
     }
-    if (it == 0) {
+    if (it == 0 && seed == nullptr) {
 #pragma unroll
       for (int v = 0; v < V; ++v) l[v] = c[v];
     } else {
@@ -101,11 +121,18 @@ agg_dual_kernel(const int8_t* __restrict__ cost, OutT* __restrict__ out_f,
     for (int v = 0; v < V; ++v) c[v] = cn[v];
     s += ds;
   }
+  if (final_carry != nullptr) {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (d0 + v < D) final_carry[(long long)line * D + d0 + v] = n[v];
+  }
 }
 
 template <typename OutT>
-static int launch(const int8_t* cost, OutT* out_f, OutT* out_b, int H, int W, int D, int axis,
-                  float p1, float p2, int clamp, cudaStream_t stream) {
+static int launch(const int8_t* cost_f, const int8_t* cost_b, const float* seed_f,
+                  const float* seed_b, OutT* out_f, OutT* out_b, float* final_f, float* final_b,
+                  int H, int W, int D, int axis, float p1, float p2, int clamp,
+                  cudaStream_t stream) {
   const int nlines = axis == 0 ? W : H;
   const int warps = 2 * nlines;
   const dim3 block(32 * WARPS_PER_BLOCK);
@@ -113,8 +140,9 @@ static int launch(const int8_t* cost, OutT* out_f, OutT* out_b, int H, int W, in
   const int V = (D + 31) / 32;
 #define SVT_AGG_CASE(VV)                                                                   \
   case VV:                                                                                 \
-    agg_dual_kernel<VV, OutT><<<grid, block, 0, stream>>>(cost, out_f, out_b, H, W, D, axis, \
-                                                          p1, p2, clamp);                  \
+    agg_dual_kernel<VV, OutT><<<grid, block, 0, stream>>>(                                 \
+        cost_f, cost_b, seed_f, seed_b, out_f, out_b, final_f, final_b, H, W, D, axis, p1, p2, \
+        clamp);                                                                            \
     break;
   switch (V) {
     SVT_AGG_CASE(1) SVT_AGG_CASE(2) SVT_AGG_CASE(3) SVT_AGG_CASE(4)
@@ -128,13 +156,24 @@ static int launch(const int8_t* cost, OutT* out_f, OutT* out_b, int H, int W, in
   return (int)cudaGetLastError();
 }
 
-// out_bytes: 1 (int8, clamped at 127) or 2 (int16)
-extern "C" int svt_aggregate_dual(const void* cost, void* out_f, void* out_b, int H, int W,
-                                  int D, int axis, float p1, float p2, int out_bytes,
-                                  void* stream) {
+// out_bytes: 1 (int8, clamped at 127) or 2 (int16). cost_b: the backward
+// scan's volume (cost itself outside chain mode). seed_f/seed_b and
+// final_f/final_b: (W, D) float32 rows of chain mode (axis 0), else null.
+extern "C" int svt_aggregate_dual(const void* cost, const void* cost_b, const void* seed_f,
+                                  const void* seed_b, void* out_f, void* out_b, void* final_f,
+                                  void* final_b, int H, int W, int D, int axis, float p1,
+                                  float p2, int out_bytes, void* stream) {
+  if ((seed_f != nullptr || final_f != nullptr) && axis != 0)
+    return (int)cudaErrorInvalidValue;  // chain mode scans columns only
+  const int8_t* cf = (const int8_t*)cost;
+  const int8_t* cb = (const int8_t*)cost_b;
+  const float* sf = (const float*)seed_f;
+  const float* sb = (const float*)seed_b;
+  float* ff = (float*)final_f;
+  float* fb = (float*)final_b;
   if (out_bytes == 1)
-    return launch<int8_t>((const int8_t*)cost, (int8_t*)out_f, (int8_t*)out_b, H, W, D, axis,
+    return launch<int8_t>(cf, cb, sf, sb, (int8_t*)out_f, (int8_t*)out_b, ff, fb, H, W, D, axis,
                           p1, p2, 1, (cudaStream_t)stream);
-  return launch<int16_t>((const int8_t*)cost, (int16_t*)out_f, (int16_t*)out_b, H, W, D, axis,
-                         p1, p2, 0, (cudaStream_t)stream);
+  return launch<int16_t>(cf, cb, sf, sb, (int16_t*)out_f, (int16_t*)out_b, ff, fb, H, W, D,
+                         axis, p1, p2, 0, (cudaStream_t)stream);
 }

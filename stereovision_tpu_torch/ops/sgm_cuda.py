@@ -1,16 +1,18 @@
 """CUDA kernels of the SGM engine, each beside its plain version.
 
-Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Eight kernels, written
+Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Ten kernels, written
 by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
 
 - :func:`census_words`         ← ``sgm_pallas.census_words``
 - :func:`cost_volume`          ← ``sgm_pallas.cost_volume_planes``
-- :func:`aggregate_dual`       ← ``sgm_pallas.aggregate_dual``
+- :func:`aggregate_dir`        ← ``sgm_pallas.aggregate_dir``
+- :func:`aggregate_dual`       ← ``sgm_pallas.aggregate_dual`` (chain mode too)
 - :func:`wta_stats_from_duals` ← ``sgm_pallas.wta_stats_from_duals``
 - :func:`right_disparity`      ← ``sgm_pallas.right_disparity``
 - :func:`shift_gather`         ← ``sgm_pallas.shift_gather``
 - :func:`speckle_counts`       ← ``sgm_pallas.speckle_counts``
 - :func:`nearest_valid_lohi`   ← ``sgm_pallas.nearest_valid_lohi``
+- :func:`wta`                  ← ``sgm_pallas.wta``
 
 ``sum_wta`` and ``st_from_duals`` are XLA code in the reference and plain
 PyTorch here.
@@ -18,7 +20,9 @@ PyTorch here.
 Each wrapper sends a CPU tensor to its plain PyTorch version (``*_plain``)
 and launches its kernel on a CUDA tensor, on the current stream; there is no
 fallback from one to the other. A wrapper adds one to its count in
-:func:`launch_counts` each time it launches its kernel, and nowhere else.
+:func:`launch_counts` each time it launches its kernel, and nowhere else;
+``aggregate_dual`` counts its chain-mode launches apart, under
+``aggregate_dual_chain``.
 
 Layouts are the GPU's own, not the TPU kernels': census words are
 (nw, H, W) int32 and every volume is (H, W, D) with exactly D planes — no
@@ -40,24 +44,30 @@ _BIG = 1e9
 _BIGI = 1 << 29  # int "no competitor" sentinel (sum_wta on integer volumes)
 _MASKED = _BIGI >> 8  # summed cost of a disparity plane at or past d_valid
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "census": ("svt_census_words", (_P, _P, _I, _I, _I, _I, _P)),
     "cost": ("svt_cost_volume", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "aggregate": ("svt_aggregate_dual", (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
+    "aggregate_dir": ("svt_aggregate_dir", (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)),
+    "aggregate": ("svt_aggregate_dual",
+                  (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
     "speckle": ("svt_speckle_counts", (_P, _P, _I, _I, _I, _F, _I, _P)),
     "wta_stats": ("svt_wta_stats_from_duals", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "right_disparity": ("svt_right_disparity", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "shift_gather": ("svt_shift_gather", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "nearest_lohi": ("svt_nearest_valid_lohi", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "wta": ("svt_wta", (_P, _P, _P, _P, _P, _P, _L, _I, _P)),
 }
 _fns: dict = {}
 _launches: dict[str, int] = {}
 
 
-def _launch(kernel: str, *args) -> None:
-    """Call kernel ``kernel``'s C entry on the current stream; raise on the
-    error code it returns (``cudaGetLastError`` after the launch)."""
+def _launch(kernel: str, device: torch.device, *args) -> None:
+    """Call kernel ``kernel``'s C entry on ``device``'s current stream, with
+    ``device`` the current device (the runtime launches on the calling
+    thread's current device; a mesh may hold several cards, and only then
+    is the current device switched); raise on the error code it returns
+    (``cudaGetLastError`` after the launch)."""
     fn = _fns.get(kernel)
     if fn is None:
         symbol, argtypes = _SIGNATURES[kernel]
@@ -65,7 +75,12 @@ def _launch(kernel: str, *args) -> None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _fns[kernel] = fn
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {err}")
 
@@ -87,7 +102,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    _launches.update({f.__name__: 0 for f in KERNEL_WRAPPERS})
+    _launches.update({name: 0 for name in COUNTS})
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +125,7 @@ def census_words(img: torch.Tensor, ksize: int = 5, wsize: int = 5) -> torch.Ten
     H, W = img.shape
     nw = (ksize * wsize - 1 + 31) // 32
     out = torch.empty((nw, H, W), dtype=torch.int32, device=img.device)
-    _launch("census", img.data_ptr(), out.data_ptr(), H, W, ksize, wsize)
+    _launch("census", img.device, img.data_ptr(), out.data_ptr(), H, W, ksize, wsize)
     _launches["census_words"] += 1
     return out
 
@@ -151,7 +166,7 @@ def cost_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
         raise ValueError(f"max_cost {max_cost} does not fit int8")
     nw, H, W = cl.shape
     out = torch.empty((H, W, num_disparities), dtype=torch.int8, device=cl.device)
-    _launch("cost", cl.data_ptr(), cr.data_ptr(), out.data_ptr(), H, W,
+    _launch("cost", cl.device, cl.data_ptr(), cr.data_ptr(), out.data_ptr(), H, W,
             num_disparities, nw, min_d, int(max_cost))
     _launches["cost_volume"] += 1
     return out
@@ -178,19 +193,59 @@ def _renorm(l: torch.Tensor) -> torch.Tensor:
     return l - l.amin(dim=-1, keepdim=True)
 
 
-def aggregate_dir_plain(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
-                        reverse: bool = False) -> torch.Tensor:
-    """One SGM path direction along ``axis`` (0 or 1) of an (H, W, D) cost
-    volume → float32 path costs of the same shape; ``reverse`` scans from the
-    far end. A Python loop over the scan axis of vectorised steps."""
+def _scan(cost: torch.Tensor, p1: float, p2: float, axis: int, reverse: bool,
+          seed: torch.Tensor | None = None):
+    """One SGM path direction along ``axis`` → (float32 path costs of the
+    shape of ``cost``, the normalised carry after the last step). Without
+    ``seed`` the first step is L = c; with it every step, the first
+    included, starts from the carry (a zero seed is a fresh start). A
+    Python loop over the scan axis of vectorised steps."""
     S = cost.shape[axis]
     out = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
-    n = None
+    n = seed
     for i in (range(S - 1, -1, -1) if reverse else range(S)):
         c = cost.select(axis, i).to(torch.float32)
         l = c if n is None else _sgm_step_norm(n, c, p1, p2)
         n = _renorm(l)
         out.select(axis, i).copy_(l)
+    return out, n
+
+
+def aggregate_dir_plain(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
+                        reverse: bool = False, acc: torch.Tensor | None = None) -> torch.Tensor:
+    """One SGM path direction along ``axis`` (0 or 1) of an (H, W, D) cost
+    volume → float32 path costs of the same shape; ``reverse`` scans from the
+    far end. With ``acc`` the path costs are added onto it in place and
+    ``acc`` is returned."""
+    l, _ = _scan(cost, p1, p2, axis, reverse)
+    return l if acc is None else acc.add_(l)
+
+
+def aggregate_dir(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
+                  reverse: bool = False, acc: torch.Tensor | None = None) -> torch.Tensor:
+    """(H, W, D) float32 cost → float32 path costs of one direction along
+    ``axis`` (0: down the columns, 1: along the rows; ``reverse`` from the far
+    end). With ``acc``, an (H, W, D) float32 running sum, the path costs are
+    added onto ``acc`` in place and ``acc`` is returned: the port updates it
+    where the reference aliases its input and output."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if acc is not None and acc.shape != cost.shape:
+        raise ValueError(f"acc {tuple(acc.shape)} does not match cost {tuple(cost.shape)}")
+    if cost.device.type == "cpu":
+        return aggregate_dir_plain(cost, p1, p2, axis, reverse, acc)
+    _check(cost, "cost", torch.float32, 3)
+    if acc is not None:
+        _check(acc, "acc", torch.float32, 3)
+    H, W, D = cost.shape
+    if D > 512:
+        raise NotImplementedError(
+            f"aggregate_dir with more than 512 disparities (got {D}; the kernel keeps at "
+            "most 16 per lane) is not ported yet (ROADMAP.md kernel queue item 5)")
+    out = torch.empty_like(cost) if acc is None else acc
+    _launch("aggregate_dir", cost.device, cost.data_ptr(), out.data_ptr(), H, W, D, axis,
+            int(reverse), float(p1), float(p2), int(acc is not None))
+    _launches["aggregate_dir"] += 1
     return out
 
 
@@ -201,27 +256,66 @@ def _store(l: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     return l.to(out_dtype)
 
 
+def _chain_args(cost, axis, boundary, return_final, cost_b):
+    """Validate chain mode's arguments as the reference does
+    (``sgm_pallas.py:914-920``): axis 0, and a boundary with
+    ``return_final``; returns whether chain mode is on."""
+    chain = boundary is not None or return_final or cost_b is not None
+    if not chain:
+        return False
+    if axis != 0:
+        raise ValueError(f"chain mode (boundary, return_final, cost_b) needs axis 0, got {axis}")
+    if boundary is None or not return_final:
+        raise ValueError("chain mode takes a boundary and returns the final carries together")
+    H, W, D = cost.shape
+    for b in boundary:
+        if tuple(b.shape) != (W, D):
+            raise ValueError(f"boundary rows must be (W, D) = {(W, D)}, got {tuple(b.shape)}")
+    if cost_b is not None and cost_b.shape != cost.shape:
+        raise ValueError(f"cost_b {tuple(cost_b.shape)} does not match cost {tuple(cost.shape)}")
+    if any(t.device != cost.device for t in (*boundary, cost if cost_b is None else cost_b)):
+        raise ValueError("chain mode's boundary rows and cost_b must lie on cost's device")
+    return True
+
+
 def aggregate_dual_plain(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
-                         out_dtype: torch.dtype = torch.int16):
+                         out_dtype: torch.dtype = torch.int16, boundary=None,
+                         return_final: bool = False, cost_b: torch.Tensor | None = None):
     """Both path directions along ``axis`` → (L_fwd, L_bwd) in ``out_dtype``
-    (int8 stores clamp at 127; the carries never do)."""
-    return tuple(
-        _store(aggregate_dir_plain(cost, p1, p2, axis, reverse), out_dtype)
-        for reverse in (False, True)
-    )
+    (int8 stores clamp at 127; the carries never do); in chain mode (see
+    :func:`aggregate_dual`) also the two final normalised carries."""
+    if not _chain_args(cost, axis, boundary, return_final, cost_b):
+        return tuple(_store(_scan(cost, p1, p2, axis, reverse)[0], out_dtype)
+                     for reverse in (False, True))
+    lf, ff = _scan(cost, p1, p2, 0, False, boundary[0].to(torch.float32))
+    lb, fb = _scan(cost if cost_b is None else cost_b, p1, p2, 0, True,
+                   boundary[1].to(torch.float32))
+    return _store(lf, out_dtype), _store(lb, out_dtype), ff, fb
 
 
 def aggregate_dual(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
-                   out_dtype: torch.dtype = torch.int16):
+                   out_dtype: torch.dtype = torch.int16, boundary=None,
+                   return_final: bool = False, cost_b: torch.Tensor | None = None):
     """(H, W, D) int8 cost → (L_fwd, L_bwd) path costs along ``axis``: 0 scans
     down the columns (vertical paths), 1 along the rows (horizontal paths).
-    ``out_dtype`` is int8 (stores clamp at 127) or int16."""
+    ``out_dtype`` is int8 (stores clamp at 127) or int16.
+
+    Chain mode (the cross-tile vertical chain of ``parallel.disparity_exact``;
+    axis 0 only, ``boundary`` and ``return_final`` together): ``boundary`` is
+    a pair (bf, bb) of (W, D) float32 min-normalised carry rows from which
+    the forward and the backward scan start (every row, the first included,
+    takes the step from its carry; zeros are a fresh start), ``cost_b`` an
+    optional volume for the backward scan (default ``cost``), and the result
+    is (L_fwd, L_bwd, ff, fb) with ff the normalised carry after row H−1 and
+    fb the one after row 0: what the next tile's boundary expects."""
     if out_dtype not in (torch.int8, torch.int16):
         raise TypeError(f"out_dtype must be int8 or int16, got {out_dtype}")
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+    chain = _chain_args(cost, axis, boundary, return_final, cost_b)
     if cost.device.type == "cpu":
-        return aggregate_dual_plain(cost, p1, p2, axis, out_dtype)
+        return aggregate_dual_plain(cost, p1, p2, axis, out_dtype, boundary, return_final,
+                                    cost_b)
     _check(cost, "cost", torch.int8, 3)
     H, W, D = cost.shape
     if D > 512:
@@ -230,8 +324,21 @@ def aggregate_dual(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
             "most 16 per lane) is not ported yet (ROADMAP.md kernel queue item 5)")
     lf = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
     lb = torch.empty_like(lf)
-    _launch("aggregate", cost.data_ptr(), lf.data_ptr(), lb.data_ptr(), H, W, D, axis,
-            float(p1), float(p2), lf.element_size())
+    cost_b = cost if cost_b is None else cost_b
+    ptrs = [None] * 4  # seed_f, seed_b, final_f, final_b
+    if chain:
+        _check(cost_b, "cost_b", torch.int8, 3)
+        for b, name in zip(boundary, ("bf", "bb")):
+            _check(b, name, torch.float32, 2)
+        ff = torch.empty((W, D), dtype=torch.float32, device=cost.device)
+        fb = torch.empty_like(ff)
+        ptrs = [boundary[0].data_ptr(), boundary[1].data_ptr(), ff.data_ptr(), fb.data_ptr()]
+    _launch("aggregate", cost.device, cost.data_ptr(), cost_b.data_ptr(), ptrs[0], ptrs[1],
+            lf.data_ptr(), lb.data_ptr(), ptrs[2], ptrs[3], H, W, D, axis, float(p1),
+            float(p2), lf.element_size())
+    if chain:
+        _launches["aggregate_dual_chain"] += 1
+        return lf, lb, ff, fb
     _launches["aggregate_dual"] += 1
     return lf, lb
 
@@ -335,8 +442,8 @@ def wta_stats_from_duals(hf: torch.Tensor, hb: torch.Tensor, d_valid: int | None
     best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=hf.device)
                           for _ in range(4))
     idx = torch.empty((H, W), dtype=torch.int32, device=hf.device)
-    _launch("wta_stats", hf.data_ptr(), hb.data_ptr(), best.data_ptr(), idx.data_ptr(),
-            cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D, d_valid,
+    _launch("wta_stats", hf.device, hf.data_ptr(), hb.data_ptr(), best.data_ptr(),
+            idx.data_ptr(), cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D, d_valid,
             hf.element_size())
     _launches["wta_stats_from_duals"] += 1
     return best, idx, cm, cp, comp
@@ -377,7 +484,7 @@ def right_disparity(s: torch.Tensor, d_valid: int | None = None) -> torch.Tensor
     _check(s, "s", s.dtype, 3)
     H, W, _ = s.shape
     out = torch.empty((H, W), dtype=torch.int32, device=s.device)
-    _launch("right_disparity", s.data_ptr(), out.data_ptr(), H, W, D, d_valid,
+    _launch("right_disparity", s.device, s.data_ptr(), out.data_ptr(), H, W, D, d_valid,
             s.element_size())
     _launches["right_disparity"] += 1
     return out
@@ -419,8 +526,8 @@ def shift_gather(src: torch.Tensor, offsets: torch.Tensor, max_offset: int) -> t
     H, W = offsets.shape
     B = src.shape[0] if src.ndim == 3 else 1
     out = torch.empty_like(src)
-    _launch("shift_gather", src.data_ptr(), offsets.data_ptr(), out.data_ptr(), B, H, W,
-            int(max_offset))
+    _launch("shift_gather", src.device, src.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            B, H, W, int(max_offset))
     _launches["shift_gather"] += 1
     return out
 
@@ -453,7 +560,7 @@ def speckle_counts(dv: torch.Tensor, k: int, r: float, nbins: int) -> torch.Tens
     _check(dv, "dv", torch.float32, 2)
     H, W = dv.shape
     out = torch.empty_like(dv)
-    _launch("speckle", dv.data_ptr(), out.data_ptr(), H, W, k, float(r), nbins)
+    _launch("speckle", dv.device, dv.data_ptr(), out.data_ptr(), H, W, k, float(r), nbins)
     _launches["speckle_counts"] += 1
     return out
 
@@ -517,12 +624,48 @@ def nearest_valid_lohi(disp: torch.Tensor, valid: torch.Tensor, d_up: torch.Tens
             f"nearest_valid_lohi over lines longer than {_LOHI_MAX_LINE} is not ported "
             "(ROADMAP.md kernel queue item 5)")
     lo, hi = torch.empty_like(disp), torch.empty_like(disp)
-    _launch("nearest_lohi", disp.data_ptr(), valid.data_ptr(), d_up.data_ptr(),
+    _launch("nearest_lohi", disp.device, disp.data_ptr(), valid.data_ptr(), d_up.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), H, W, axis)
     _launches["nearest_valid_lohi"] += 1
     return lo, hi
 
 
-KERNEL_WRAPPERS = (census_words, cost_volume, aggregate_dual, wta_stats_from_duals,
-                   right_disparity, shift_gather, speckle_counts, nearest_valid_lohi)
+# ---------------------------------------------------------------------------
+# Winner statistics of one volume
+# ---------------------------------------------------------------------------
+
+
+def wta_plain(agg: torch.Tensor):
+    """The :func:`_wta_stats` of an (H, W, D) volume as float32 maps and an
+    int32 idx."""
+    return _float_stats(*_wta_stats(agg))
+
+
+def wta(agg: torch.Tensor):
+    """(H, W, D) float32 aggregated costs → (best, idx, cm, cp, competitor):
+    four float32 (H, W) maps and an int32 idx, ties to the smallest d, a
+    neighbour outside [0, D) and a missing competitor at BIG (1e9); one read
+    of the volume."""
+    if agg.device.type == "cpu":
+        return wta_plain(agg)
+    _check(agg, "agg", torch.float32, 3)
+    H, W, D = agg.shape
+    if D > 512:
+        raise NotImplementedError(
+            f"wta with more than 512 disparities (got {D}) is not ported yet "
+            "(ROADMAP.md kernel queue item 5)")
+    best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=agg.device)
+                          for _ in range(4))
+    idx = torch.empty((H, W), dtype=torch.int32, device=agg.device)
+    _launch("wta", agg.device, agg.data_ptr(), best.data_ptr(), idx.data_ptr(),
+            cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D)
+    _launches["wta"] += 1
+    return best, idx, cm, cp, comp
+
+
+KERNEL_WRAPPERS = (census_words, cost_volume, aggregate_dir, aggregate_dual,
+                   wta_stats_from_duals, right_disparity, shift_gather, speckle_counts,
+                   nearest_valid_lohi, wta)
+# launch counts: one per wrapper, and aggregate_dual's chain mode apart
+COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS) + ("aggregate_dual_chain",)
 reset_launch_counts()

@@ -12,7 +12,7 @@ yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 ``impl``: ``"xla"`` runs the plain PyTorch path (the role ``impl="xla"``
 plays in the reference: float32 cost volumes, a scan per direction, gathers
-and scans); ``"auto"`` and ``"pallas"`` run the kernel path, whose eight
+and scans); ``"auto"`` and ``"pallas"`` run the kernel path, whose
 kernels (``ops.sgm_cuda``) launch on CUDA tensors and use their plain
 versions on CPU tensors. The two paths give the same disparity, as the
 reference's two do.
@@ -176,18 +176,26 @@ def cost_from_census(cl: torch.Tensor, cr: torch.Tensor, p: SGMParams) -> torch.
 
 def aggregate(cost: torch.Tensor, p: SGMParams) -> torch.Tensor:
     """Semi-global aggregation of (H, W, D) → summed float32 (H, W, D) over
-    the horizontal pair (``paths=2``) or all four paths: the plain scan of
-    each direction (``impl="xla"``). The reference's Pallas form of this
-    function runs kernel #3 (``aggregate_dir``), which is not ported yet."""
-    if _resolve_impl(p.impl) != "xla":
-        raise _unported("aggregate() with a kernel impl (aggregate_dir)", "kernel queue #3")
-    agg = sgm_cuda.aggregate_dir_plain
-    s = agg(cost, p.p1, p.p2, axis=1)
-    s = s + agg(cost, p.p1, p.p2, axis=1, reverse=True)
-    if p.paths == 2:
-        return s
-    s = s + agg(cost, p.p1, p.p2, axis=0)
-    return s + agg(cost, p.p1, p.p2, axis=0, reverse=True)
+    the horizontal pair (``paths=2``) or all four paths (→ ← ↓ ↑): the plain
+    scan of each direction (``impl="xla"``), or one
+    :func:`sgm_cuda.aggregate_dir` launch per direction adding onto the
+    running sum in place (a kernel impl; the reference's kernel branch sums
+    four directions whatever ``paths`` says, ROADMAP.md §3)."""
+    if _resolve_impl(p.impl) == "xla":
+        agg = sgm_cuda.aggregate_dir_plain
+        s = agg(cost, p.p1, p.p2, axis=1)
+        s = s + agg(cost, p.p1, p.p2, axis=1, reverse=True)
+        if p.paths == 2:
+            return s
+        s = s + agg(cost, p.p1, p.p2, axis=0)
+        return s + agg(cost, p.p1, p.p2, axis=0, reverse=True)
+    cost = cost.to(torch.float32).contiguous()
+    s = sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=1)
+    sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=1, reverse=True, acc=s)
+    if p.paths != 2:
+        sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=0, acc=s)
+        sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=0, reverse=True, acc=s)
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -199,12 +207,16 @@ def _wta(agg, p: SGMParams, stats=None):
     """Winner-take-all with parabola subpixel + uniqueness test.
 
     ``stats`` (best, idx, cm, cp, competitor) comes from the kernel path;
-    without it they are computed from ``agg`` here.
+    without it they are computed from the volume ``agg``: in plain PyTorch
+    (``impl="xla"``), else by :func:`sgm_cuda.wta`.
     Returns (disp float32 px incl. min_disparity, valid bool, best cost).
     """
     D = p.num_disparities
     if stats is None:
-        stats = sgm_cuda._wta_stats(agg)
+        if _resolve_impl(p.impl) == "xla":
+            stats = sgm_cuda._wta_stats(agg)
+        else:
+            stats = sgm_cuda.wta(agg.to(torch.float32).contiguous())
     best, best_idx, cm, cp, competitor = stats
     cm = torch.where(best_idx == 0, best, cm)
     cp = torch.where(best_idx >= D - 1, best, cp)
@@ -281,42 +293,42 @@ def _speckle_suppress(disp, valid, p: SGMParams, impl: str):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_search(left, right, p: SGMParams, strips: int = 1, lr_rows: int | None = None,
-                   cl=None, cr=None):
-    """The kernel path (the counterpart of the reference's
-    ``_cost_aggregate_pallas`` and of the packed core's kernel branch):
-    census words of both images (or ``cl``/``cr``) → one int8 (H, W, D) cost
-    volume → the horizontal dual sweep, and with ``paths=4`` the vertical one
-    run per row strip (``strips`` equal strips: vertical paths restart at
-    their seams) → winner statistics: ``wta_stats_from_duals`` for the
-    horizontal pair unless ``stats_impl="xla"``, else ``sum_wta`` → WTA →
-    the LR check on the leading ``lr_rows`` rows (all by default). Every
-    kernel works per row except the vertical sweep, so the strips share one
-    launch of each. Returns (disp, valid, best cost)."""
-    D = p.num_disparities
+def _vol_dtype(p: SGMParams) -> torch.dtype:
+    """The kernel path's path-volume dtype: per-direction path costs are
+    ≤ n_bits + P2, int8-exact for the default census sizes."""
+    n_bits = p.census_ksize * p.census_wsize - 1
+    return torch.int8 if (n_bits + p.p2) <= 127 else torch.int16
+
+
+def _kernel_costs(left, right, p: SGMParams, cl=None, cr=None, crop: int = 0):
+    """The kernel path's head: census words of both images (or
+    ``cl``/``cr``) → one int8 (H, W, D) cost volume, less ``crop`` rows at
+    each end (rows that only feed the census windows) → the horizontal dual
+    sweep. Returns (cost, (hf, hb))."""
     n_bits = p.census_ksize * p.census_wsize - 1
     if cl is None:
         cl = sgm_cuda.census_words(left, p.census_ksize, p.census_wsize)
     if cr is None:
         cr = sgm_cuda.census_words(right, p.census_ksize, p.census_wsize)
-    cost = sgm_cuda.cost_volume(cl, cr, D, p.min_disparity, n_bits)
-    # per-direction path costs are ≤ n_bits + P2: int8-exact for the default
-    # census sizes
-    vol_dt = torch.int8 if (n_bits + p.p2) <= 127 else torch.int16
-    hf, hb = sgm_cuda.aggregate_dual(cost, p.p1, p.p2, axis=1, out_dtype=vol_dt)
-    H = cost.shape[0]
-    lr_rows = H if lr_rows is None else lr_rows
+    cost = sgm_cuda.cost_volume(cl, cr, p.num_disparities, p.min_disparity, n_bits)
+    if crop:
+        cost = cost[crop:-crop]
+    return cost, sgm_cuda.aggregate_dual(cost, p.p1, p.p2, axis=1, out_dtype=_vol_dtype(p))
+
+
+def _kernel_select(vols, p: SGMParams, lr_rows: int | None = None):
+    """The kernel path's tail: the horizontal pair or all four path volumes
+    → winner statistics (``wta_stats_from_duals`` for the pair unless
+    ``stats_impl="xla"``, else ``sum_wta``) → WTA → the LR check on the
+    leading ``lr_rows`` rows (all by default). Returns (disp, valid, best
+    cost)."""
+    hf, hb = vols[:2]
+    lr_rows = hf.shape[0] if lr_rows is None else lr_rows
     lr = p.lr_max_diff >= 0 and lr_rows > 0
-    if p.paths == 2 and p.stats_impl != "xla":
+    if len(vols) == 2 and p.stats_impl != "xla":
         stats = sgm_cuda.wta_stats_from_duals(hf, hb)
         s = sgm_cuda.st_from_duals(hf[:lr_rows], hb[:lr_rows]) if lr else None
     else:
-        vols = (hf, hb)
-        if p.paths == 4:
-            hs = H // strips
-            sweeps = [sgm_cuda.aggregate_dual(cost[g * hs:(g + 1) * hs], p.p1, p.p2, axis=0,
-                                              out_dtype=vol_dt) for g in range(strips)]
-            vols += tuple(torch.cat(parts) for parts in zip(*sweeps))
         s, *stats = sgm_cuda.sum_wta(vols, emit_sum=lr)
         s = s[:lr_rows] if lr else None
     disp, valid, best = _wta(None, p, stats)
@@ -326,10 +338,33 @@ def _kernel_search(left, right, p: SGMParams, strips: int = 1, lr_rows: int | No
     return disp, valid, best
 
 
+def _kernel_search(left, right, p: SGMParams, strips: int = 1, lr_rows: int | None = None,
+                   cl=None, cr=None):
+    """The kernel path (the counterpart of the reference's
+    ``_cost_aggregate_pallas`` and of the packed core's kernel branch):
+    :func:`_kernel_costs`, with ``paths=4`` the vertical dual sweep run per
+    row strip (``strips`` equal strips: vertical paths restart at their
+    seams), then :func:`_kernel_select`. Every kernel works per row except
+    the vertical sweep, so the strips share one launch of each. Returns
+    (disp, valid, best cost)."""
+    cost, vols = _kernel_costs(left, right, p, cl, cr)
+    if p.paths == 4:
+        hs = cost.shape[0] // strips
+        sweeps = [sgm_cuda.aggregate_dual(cost[g * hs:(g + 1) * hs], p.p1, p.p2, axis=0,
+                                          out_dtype=_vol_dtype(p)) for g in range(strips)]
+        vols += tuple(torch.cat(parts) for parts in zip(*sweeps))
+    return _kernel_select(vols, p, lr_rows)
+
+
 def _plain_search(cl, cr, p: SGMParams, lr: bool = True):
     """The plain path over (H, W, nw) censuses: float32 cost volume,
     aggregation, WTA and (with ``lr``) the LR check."""
-    agg = aggregate(cost_from_census(cl, cr, p), p)
+    return _plain_select(aggregate(cost_from_census(cl, cr, p), p), p, lr)
+
+
+def _plain_select(agg, p: SGMParams, lr: bool = True):
+    """The plain path's tail: WTA on the float32 sum ``agg`` and (with
+    ``lr``) the LR check. Returns (disp, valid, best cost)."""
     disp, valid, best = _wta(agg, p)
     if lr and p.lr_max_diff >= 0:
         valid = valid & _left_right_check(agg, disp, p, "xla")

@@ -1,10 +1,12 @@
-"""The port's eight kernels (stereovision_tpu_torch.ops.sgm_cuda).
+"""The port's ten kernels (stereovision_tpu_torch.ops.sgm_cuda).
 
 On the CPU: each plain version is held exactly against the JAX package's
 Pallas kernel run in interpret mode on the same numpy inputs (real lanes
 only; the port's volumes carry exactly D disparities, in (H, W, D) where the
 TPU kernels read (W, H, D) or (D, H, W) transposes), and the summed-volume
-ops against the reference's XLA ones. On a card (marked ``cuda``, skipped
+ops against the reference's XLA ones (``aggregate_dual``'s chain mode,
+``aggregate_dir`` and ``wta`` are held against the reference in
+``tests/test_torch_parallel.py``). On a card (marked ``cuda``, skipped
 elsewhere): each CUDA kernel is held exactly against its plain version.
 """
 
@@ -269,8 +271,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     dv = torch.from_numpy(_dv(16, 40))
     sgm_cuda.speckle_counts(dv, 5, 32.0, 6)
     sgm_cuda.nearest_valid_lohi(dv, dv > 0, dv)
-    assert sgm_cuda.launch_counts() == {f.__name__: 0 for f in sgm_cuda.KERNEL_WRAPPERS}
-    assert len(sgm_cuda.KERNEL_WRAPPERS) == 8
+    z = torch.zeros((40, 8))
+    sgm_cuda.aggregate_dual(cost, 8.0, 96.0, boundary=(z, z), return_final=True, cost_b=cost)
+    s = sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=1)
+    sgm_cuda.wta(sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=0, acc=s))
+    assert sgm_cuda.launch_counts() == {name: 0 for name in sgm_cuda.COUNTS}
+    assert len(sgm_cuda.KERNEL_WRAPPERS) == 10
+    assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS} | {
+        "aggregate_dual_chain"}
 
 
 def test_aggregate_dual_rejects_bad_arguments():
@@ -279,6 +287,33 @@ def test_aggregate_dual_rejects_bad_arguments():
         sgm_cuda.aggregate_dual(cost, 8.0, 96.0, out_dtype=torch.float32)
     with pytest.raises(ValueError):
         sgm_cuda.aggregate_dual(cost, 8.0, 96.0, axis=2)
+
+
+def _chain_refusals(cost):
+    """Chain-mode argument sets the reference refuses
+    (``sgm_pallas.py:914-920``): not axis 0, a boundary without the final
+    carries or the reverse, ``cost_b`` alone; and rows of the wrong shape."""
+    H, W, D = cost.shape
+    z = torch.zeros((W, D), device=cost.device)
+    return [dict(axis=1, boundary=(z, z), return_final=True),
+            dict(boundary=(z, z)), dict(return_final=True), dict(cost_b=cost),
+            dict(boundary=(z[:-1], z[:-1]), return_final=True),
+            dict(boundary=(z, z), return_final=True, cost_b=cost[:-1])]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_aggregate_dual_chain_mode_refuses_what_the_reference_refuses(case):
+    cost = torch.zeros((4, 5, 8), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        sgm_cuda.aggregate_dual(cost, 8.0, 96.0, **_chain_refusals(cost)[case])
+
+
+def test_aggregate_dir_rejects_bad_arguments():
+    cost = torch.zeros((4, 5, 8))
+    with pytest.raises(ValueError):
+        sgm_cuda.aggregate_dir(cost, 8.0, 96.0, axis=2)
+    with pytest.raises(ValueError):
+        sgm_cuda.aggregate_dir(cost, 8.0, 96.0, acc=torch.zeros((4, 5, 7)))
 
 
 def test_sum_wta_matches_stats_of_the_float_sum():
@@ -436,3 +471,83 @@ def test_new_kernels_reject_wrong_dtype(cuda):
     with pytest.raises(TypeError):
         sgm_cuda.wta_stats_from_duals(torch.zeros((4, 5, 8), dtype=torch.int32, device=cuda),
                                       torch.zeros((4, 5, 8), dtype=torch.int32, device=cuda))
+
+
+def _seeds(shape, device):
+    """Random nonzero min-normalised (W, D) carry rows."""
+    raw = torch.from_numpy(RNG.integers(0, 150, size=shape).astype(np.float32)).to(device)
+    return raw - raw.amin(dim=-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 107, 320])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_aggregate_dual_chain_kernel(cuda, D, dtype):
+    """Random nonzero boundaries, a backward volume other than the forward
+    one; costs up to 60 with P2=96 reach the int8 clamp."""
+    cost, cost_b = (torch.from_numpy(RNG.integers(0, 61, size=(23, 30, D), dtype=np.int8)).to(cuda)
+                    for _ in range(2))
+    bf, bb = _seeds((30, D), cuda), _seeds((30, D), cuda)
+    before = sgm_cuda.launch_counts()
+    got = sgm_cuda.aggregate_dual(cost, 8.0, 96.0, out_dtype=dtype, boundary=(bf, bb),
+                                  return_final=True, cost_b=cost_b)
+    torch.cuda.synchronize()
+    after = sgm_cuda.launch_counts()
+    assert after["aggregate_dual_chain"] == before["aggregate_dual_chain"] + 1
+    assert after["aggregate_dual"] == before["aggregate_dual"]
+    want = sgm_cuda.aggregate_dual_plain(cost, 8.0, 96.0, out_dtype=dtype, boundary=(bf, bb),
+                                         return_final=True, cost_b=cost_b)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 107, 320])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("reverse,with_acc", [(False, False), (True, True)])
+def test_aggregate_dir_kernel(cuda, D, axis, reverse, with_acc):
+    cost = torch.from_numpy(RNG.integers(0, 40, size=(21, 30, D)).astype(np.float32)).to(cuda)
+    acc = (torch.from_numpy(RNG.integers(0, 500, size=(21, 30, D)).astype(np.float32)).to(cuda)
+           if with_acc else None)
+    got = sgm_cuda.aggregate_dir(cost, 8.0, 96.0, axis, reverse,
+                                 None if acc is None else acc.clone())
+    torch.cuda.synchronize()
+    want = sgm_cuda.aggregate_dir_plain(cost, 8.0, 96.0, axis, reverse,
+                                        None if acc is None else acc.clone())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 16, 107, 320])
+def test_wta_kernel(cuda, D):
+    """Values 0..6: ties everywhere (to the smallest d)."""
+    agg = torch.from_numpy(RNG.integers(0, 7, size=(13, 70, D)).astype(np.float32)).to(cuda)
+    got = sgm_cuda.wta(agg)
+    torch.cuda.synchronize()
+    want = sgm_cuda.wta_plain(agg)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_chain_dir_and_wta_kernels_reject_bad_dtypes_and_modes(cuda):
+    before = sgm_cuda.launch_counts()
+    with pytest.raises(TypeError):
+        sgm_cuda.aggregate_dir(torch.zeros((4, 5, 8), dtype=torch.int8, device=cuda), 8.0, 96.0)
+    with pytest.raises(TypeError):
+        sgm_cuda.aggregate_dir(torch.zeros((4, 5, 8), device=cuda), 8.0, 96.0,
+                               acc=torch.zeros((4, 5, 8), dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        sgm_cuda.wta(torch.zeros((4, 5, 8), dtype=torch.int16, device=cuda))
+    cost = torch.zeros((4, 5, 8), dtype=torch.int8, device=cuda)
+    z64 = torch.zeros((5, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        sgm_cuda.aggregate_dual(cost, 8.0, 96.0, boundary=(z64, z64), return_final=True)
+    for kw in _chain_refusals(cost):
+        with pytest.raises(ValueError):
+            sgm_cuda.aggregate_dual(cost, 8.0, 96.0, **kw)
+    for fn in (sgm_cuda.aggregate_dir, sgm_cuda.wta):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            fn(torch.zeros((2, 3, 513), device=cuda), *((8.0, 96.0) if fn is not sgm_cuda.wta
+                                                         else ()))
+    assert sgm_cuda.launch_counts() == before

@@ -265,9 +265,11 @@ def test_hier_within_refine_range_is_a_full_search():
 
 
 def test_aggregate_with_a_kernel_impl_raises():
+    """The kernel impls run (tests/test_torch_parallel.py); the interpret
+    impl, which has no counterpart, raises."""
     cost = torch.zeros((4, 6, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sgm.aggregate(cost, stereo.SGMParams(lr_max_diff=-1))
+        sgm.aggregate(cost, stereo.SGMParams(lr_max_diff=-1, impl="pallas_interpret"))
 
 
 def test_unknown_impl_raises():
