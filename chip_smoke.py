@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's DepthPipeline and its tile-parallel engines on one CUDA
-card and check them.
+"""Drive the port's DepthPipeline, its tile-parallel engines and its
+measurement scripts on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,13 +9,15 @@ full search with the LR check off (kept so that its time stays comparable), the
 full search with it on (``SGMParams(num_disparities=320)``), and the
 production path (``production_preset()``: hier2, R=32 windows, census
 arbitration and fill). Then the ``parallel`` package runs on a mesh of four
-row tiles on the one card, and the engine's ``aggregate``/``_wta`` run
-under the kernel impl. Phases, each of which raises (exit code non-zero,
-no result line) on failure:
+row tiles on the one card, the engine's ``aggregate``/``_wta`` run
+under the kernel impl, and the four measurement scripts of
+``stereovision_tpu_torch.scripts`` run their variant kernels. Phases, each
+of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the ten CUDA kernels of ``stereovision_tpu_torch/ops/csrc`` from
-   the checkout, one nvcc per source, all at once;
+2. build the eleven CUDA sources of ``stereovision_tpu_torch/ops/csrc``
+   from the checkout, and three of them again with their measurement
+   variants, one nvcc per library, all at once;
 3. run one frame of each path recording every kernel launch's inputs, then
    replay each recorded launch against the kernel's plain PyTorch version on
    the same inputs: all must be exact; so must ``wta_stats_from_duals`` on
@@ -48,7 +50,15 @@ no result line) on failure:
 9. time the two exact strategies (ms per frame; four tiles share one card,
    so this is no scaling number), the chain-mode launches, ``aggregate_dir``
    and ``wta``, each beside its bound, and the host time of one launch
-   with and without a device switch (:func:`launch_host_us`).
+   with and without a device switch (:func:`launch_host_us`);
+10. the measurement scripts at their full shapes (``bench_agg_step``,
+   ``bench_wta_variants``, ``bench_rdisp`` at D=128 and 320,
+   ``bench_sumwta`` at D=128, 384 and 320), each run with the launch
+   counts set to 0 just before and read just after: every variant kernel
+   is held against its plain version (exact) and timed beside its bound,
+   and its family must have launched; then ``aggregate_dir``'s ``wta_out``
+   at 720x1280x320 against its plain version, timed beside the plain
+   ``aggregate_dir`` launch.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card; before that, one ``{"kernels": [...]}`` line.
@@ -97,6 +107,16 @@ SLICE3_KERNELS = {
     "aggregate_dual_chain": ("aggregate.cu", 866, "aggregate_dual_plain"),
     "aggregate_dir": ("aggregate_dir.cu", 595, "aggregate_dir_plain"),
     "wta": ("wta.cu", 1701, "wta_plain"),
+}
+# the measurement kernels (phase 10): launch-count name → (source, the TPU
+# kernel's pallas_call, the row of its script's run that the kernels line
+# reports: the shipping kernel's counterpart at the engine's shape)
+SLICE4_KERNELS = {
+    "sum_wta": ("sum_wta.cu", "scripts/bench_sumwta.py:110", "hwd D={D}"),
+    "aggregate_dual_variants": ("aggregate.cu", "scripts/bench_agg_step.py:216", "shipping"),
+    "wta_stats_variants": ("wta_stats.cu", "scripts/bench_wta_variants.py:149", "base"),
+    "right_disparity_variants": ("right_disparity.cu", "scripts/bench_rdisp.py:84",
+                                 "in_place D={D}"),
 }
 # stages of the production frame, timed by replaying their recorded calls
 STAGES = {
@@ -525,6 +545,65 @@ def parallel_phases(torch, card: str):
     return rows
 
 
+def script_phases(torch, card: str):
+    """Phase 10; returns the kernels-line rows of the four measurement
+    kernel families."""
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.scripts import (bench_agg_step, bench_rdisp, bench_sumwta,
+                                                bench_wta_variants)
+
+    runs = {
+        "aggregate_dual_variants": lambda: bench_agg_step.run(),
+        "wta_stats_variants": lambda: bench_wta_variants.run(),
+        "right_disparity_variants": lambda: bench_rdisp.run(ds=(128, D)),
+        "sum_wta": lambda: bench_sumwta.run(ds=(128, 384, D)),
+    }
+    rows = []
+    for kname, go in runs.items():
+        t0 = time.perf_counter()
+        sgm_cuda.reset_launch_counts()
+        results = go()
+        torch.cuda.synchronize()
+        counts = sgm_cuda.launch_counts()
+        launched = sum(r["launches"] for r in results)
+        check(counts[kname] == launched > 0, f"{kname}: {counts[kname]} launches counted, "
+                                             f"{launched} made by the script")
+        check(all(v == 0 for k, v in counts.items() if k != kname),
+              f"the {kname} script launched another kernel: {counts}")
+        kernel_rows = [r for r in results if r["launches"]]
+        check(all(r["max_abs_err"] == 0.0 for r in kernel_rows), f"{kname}: not exact")
+        print(f"script of {kname}: {len(kernel_rows)} kernel variants launched {launched} times, "
+              f"all exact against their plain versions; {time.perf_counter() - t0:.1f} s, "
+              f"card {card}")
+        src, replaces, label = SLICE4_KERNELS[kname]
+        label = label.format(D=D)
+        pick = next(r for r in results if r["variant"] == label)
+        rows.append({
+            "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
+            "launches": counts[kname], "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+            "parity": "exact", "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None,
+            "timed_as": f"the {label} row of the script's run (20 launches after 3 warm-up)",
+        })
+
+    # aggregate_dir's wta_out at the engine's full-search shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cost = torch.randint(0, 40, (H, W, D), device="cuda", generator=gen).float()
+    acc = torch.randint(0, 300, (H, W, D), device="cuda", generator=gen).float()
+    got = sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, True, acc.clone(), wta_out=True)
+    want = sgm_cuda.aggregate_dir_wta_plain(cost, 8.0, 96.0, 0, True, acc.clone())
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and torch.equal(g, w),
+              "aggregate_dir with wta_out differs from its plain version")
+    del got, want
+    with_ms = cuda_ms(torch, lambda: sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, True, acc,
+                                                            wta_out=True), 5)
+    without_ms = cuda_ms(torch, lambda: sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, True, acc), 5)
+    print(f"aggregate_dir axis 0 reverse acc at {H}x{W}x{D}: wta_out exact against its plain "
+          f"version; {with_ms:.4f} ms with wta_out, {without_ms:.4f} ms without, card {card}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -734,7 +813,10 @@ def main() -> int:
     del recorded, prod
     torch.cuda.empty_cache()
     rows += parallel_phases(torch, card)
-    check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS), "a kernel row is missing")
+    torch.cuda.empty_cache()
+    rows += script_phases(torch, card)
+    check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS) + len(SLICE4_KERNELS),
+          "a kernel row is missing")
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@
 // Bound on this card: bytes, read 4*H*W*D + write 20*H*W (1.20 GB at
 // 1280x720, D=320: ~0.36 ms at 3.35 TB/s). Design: one warp per pixel,
 // the layout of wta_stats.cu: lane l holds planes l, l + 32, ... (a warp's
-// load of one plane row is 128 consecutive bytes); best, idx, cm, cp and
-// comp are five-round __shfl_xor butterflies.
+// load of one plane row is 128 consecutive bytes; V >= ceil(D/32) planes a
+// lane, exact up to 16 and a multiple of 4 above, up to 32: D <= 1024);
+// best, idx, cm, cp and comp are five-round __shfl_xor butterflies.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -89,7 +90,10 @@ extern "C" int svt_wta(const void* agg, void* best, void* idx, void* cm, void* c
                        long long npix, int D, void* stream) {
   const dim3 block(32 * WARPS_PER_BLOCK);
   const dim3 grid((unsigned)((npix + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
-  const int V = (D + 31) / 32;
+  // planes a lane holds: ceil(D/32), a multiple of 4 past 16 (the extra
+  // ones are past D and skipped)
+  int V = (D + 31) / 32;
+  if (V > 16) V = (V + 3) / 4 * 4;
 #define SVT_WTA_CASE(VV)                                                                    \
   case VV:                                                                                  \
     wta_kernel<VV><<<grid, block, 0, (cudaStream_t)stream>>>(                               \
@@ -101,8 +105,9 @@ extern "C" int svt_wta(const void* agg, void* best, void* idx, void* cm, void* c
     SVT_WTA_CASE(5) SVT_WTA_CASE(6) SVT_WTA_CASE(7) SVT_WTA_CASE(8)
     SVT_WTA_CASE(9) SVT_WTA_CASE(10) SVT_WTA_CASE(11) SVT_WTA_CASE(12)
     SVT_WTA_CASE(13) SVT_WTA_CASE(14) SVT_WTA_CASE(15) SVT_WTA_CASE(16)
+    SVT_WTA_CASE(20) SVT_WTA_CASE(24) SVT_WTA_CASE(28) SVT_WTA_CASE(32)
     default:
-      return (int)cudaErrorInvalidValue;  // D > 512
+      return (int)cudaErrorInvalidValue;  // D > 1024
   }
 #undef SVT_WTA_CASE
   return (int)cudaGetLastError();

@@ -22,7 +22,12 @@ and launches its kernel on a CUDA tensor, on the current stream; there is no
 fallback from one to the other. A wrapper adds one to its count in
 :func:`launch_counts` each time it launches its kernel, and nowhere else;
 ``aggregate_dual`` counts its chain-mode launches apart, under
-``aggregate_dual_chain``.
+``aggregate_dual_chain``. The measurement kernels of :mod:`.bench_cuda` add
+their counts to the same dict (:func:`register`).
+
+The kernels that keep a pixel's or a line's disparities in registers
+(``aggregate_dir``, ``aggregate_dual``, ``wta_stats_from_duals``, ``wta``)
+take at most 32 a lane: D ≤ 1024 on a card.
 
 Layouts are the GPU's own, not the TPU kernels': census words are
 (nw, H, W) int32 and every volume is (H, W, D) with exactly D planes — no
@@ -43,12 +48,14 @@ from stereovision_tpu_torch.ops import _build
 _BIG = 1e9
 _BIGI = 1 << 29  # int "no competitor" sentinel (sum_wta on integer volumes)
 _MASKED = _BIGI >> 8  # summed cost of a disparity plane at or past d_valid
+MAX_PLANES = 1024  # disparities a register-resident kernel takes on a card
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "census": ("svt_census_words", (_P, _P, _I, _I, _I, _I, _P)),
     "cost": ("svt_cost_volume", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "aggregate_dir": ("svt_aggregate_dir", (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P)),
+    "aggregate_dir": ("svt_aggregate_dir",
+                      (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P)),
     "aggregate": ("svt_aggregate_dual",
                   (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
     "speckle": ("svt_speckle_counts", (_P, _P, _I, _I, _I, _F, _I, _P)),
@@ -96,13 +103,30 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_planes(name: str, D: int) -> None:
+    """A kernel that keeps D values in a warp's registers takes at most 32
+    a lane."""
+    if D > MAX_PLANES:
+        raise NotImplementedError(
+            f"{name} on a card takes at most {MAX_PLANES} disparities (32 a lane in "
+            f"registers), got {D}")
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel wrapper since the last reset, by name."""
     return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    _launches.update({name: 0 for name in COUNTS})
+    _launches.update({name: 0 for name in (*COUNTS, *_launches)})
+
+
+def register(signatures: dict, counts) -> None:
+    """Add kernels beside the engine's (``ops.bench_cuda``'s measurement
+    kernels): their C entries, as in ``_SIGNATURES``, and their launch-count
+    names, set to 0."""
+    _SIGNATURES.update(signatures)
+    _launches.update({name: 0 for name in counts})
 
 
 # ---------------------------------------------------------------------------
@@ -221,32 +245,52 @@ def aggregate_dir_plain(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
     return l if acc is None else acc.add_(l)
 
 
+def aggregate_dir_wta_plain(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
+                            reverse: bool = False, acc: torch.Tensor | None = None):
+    """:func:`aggregate_dir_plain`, then the :func:`wta_plain` statistics of
+    the volume it returns: (out, best, idx, cm, cp, competitor)."""
+    out = aggregate_dir_plain(cost, p1, p2, axis, reverse, acc)
+    return (out, *wta_plain(out))
+
+
 def aggregate_dir(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
-                  reverse: bool = False, acc: torch.Tensor | None = None) -> torch.Tensor:
+                  reverse: bool = False, acc: torch.Tensor | None = None,
+                  wta_out: bool = False):
     """(H, W, D) float32 cost → float32 path costs of one direction along
     ``axis`` (0: down the columns, 1: along the rows; ``reverse`` from the far
     end). With ``acc``, an (H, W, D) float32 running sum, the path costs are
     added onto ``acc`` in place and ``acc`` is returned: the port updates it
-    where the reference aliases its input and output."""
+    where the reference aliases its input and output.
+
+    ``wta_out`` (axis 0 only, as the reference asserts) also returns the
+    :func:`wta` statistics of the volume written: (out, best, idx, cm, cp,
+    competitor), which the kernel takes from each row as it stores it."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if wta_out and axis != 0:
+        raise ValueError("wta_out needs an axis-0 pass (the reference's final pass)")
     if acc is not None and acc.shape != cost.shape:
         raise ValueError(f"acc {tuple(acc.shape)} does not match cost {tuple(cost.shape)}")
     if cost.device.type == "cpu":
+        if wta_out:
+            return aggregate_dir_wta_plain(cost, p1, p2, axis, reverse, acc)
         return aggregate_dir_plain(cost, p1, p2, axis, reverse, acc)
+    _check_planes("aggregate_dir", cost.shape[-1])
     _check(cost, "cost", torch.float32, 3)
     if acc is not None:
         _check(acc, "acc", torch.float32, 3)
     H, W, D = cost.shape
-    if D > 512:
-        raise NotImplementedError(
-            f"aggregate_dir with more than 512 disparities (got {D}; the kernel keeps at "
-            "most 16 per lane) is not ported yet (ROADMAP.md kernel queue item 5)")
     out = torch.empty_like(cost) if acc is None else acc
+    stats = ()
+    if wta_out:
+        stats = tuple(torch.empty((H, W), dtype=dt, device=cost.device)
+                      for dt in (torch.float32, torch.int32, torch.float32, torch.float32,
+                                 torch.float32))
+    ptrs = [t.data_ptr() for t in stats] or [None] * 5
     _launch("aggregate_dir", cost.device, cost.data_ptr(), out.data_ptr(), H, W, D, axis,
-            int(reverse), float(p1), float(p2), int(acc is not None))
+            int(reverse), float(p1), float(p2), int(acc is not None), *ptrs)
     _launches["aggregate_dir"] += 1
-    return out
+    return (out, *stats) if wta_out else out
 
 
 def _store(l: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -316,12 +360,9 @@ def aggregate_dual(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
     if cost.device.type == "cpu":
         return aggregate_dual_plain(cost, p1, p2, axis, out_dtype, boundary, return_final,
                                     cost_b)
+    _check_planes("aggregate_dual", cost.shape[-1])
     _check(cost, "cost", torch.int8, 3)
     H, W, D = cost.shape
-    if D > 512:
-        raise NotImplementedError(
-            f"aggregate_dual with more than 512 disparities (got {D}; the kernel keeps at "
-            "most 16 per lane) is not ported yet (ROADMAP.md kernel queue item 5)")
     lf = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
     lb = torch.empty_like(lf)
     cost_b = cost if cost_b is None else cost_b
@@ -428,16 +469,13 @@ def wta_stats_from_duals(hf: torch.Tensor, hb: torch.Tensor, d_valid: int | None
         raise ValueError(f"d_valid must be in (0, {D}], got {d_valid}")
     if hf.device.type == "cpu":
         return wta_stats_from_duals_plain(hf, hb, d_valid)
+    _check_planes("wta_stats_from_duals", D)
     if hf.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"hf must be int8 or int16, got {hf.dtype}")
     _check(hf, "hf", hf.dtype, 3)
     _check(hb, "hb", hf.dtype, 3)
     if hf.shape != hb.shape:
         raise ValueError(f"volume shapes differ: {tuple(hf.shape)} vs {tuple(hb.shape)}")
-    if D > 512:
-        raise NotImplementedError(
-            f"wta_stats_from_duals with more than 512 disparities (got {D}) is not "
-            "ported yet (ROADMAP.md kernel queue item 5)")
     H, W, _ = hf.shape
     best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=hf.device)
                           for _ in range(4))
@@ -648,12 +686,9 @@ def wta(agg: torch.Tensor):
     of the volume."""
     if agg.device.type == "cpu":
         return wta_plain(agg)
+    _check_planes("wta", agg.shape[-1])
     _check(agg, "agg", torch.float32, 3)
     H, W, D = agg.shape
-    if D > 512:
-        raise NotImplementedError(
-            f"wta with more than 512 disparities (got {D}) is not ported yet "
-            "(ROADMAP.md kernel queue item 5)")
     best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=agg.device)
                           for _ in range(4))
     idx = torch.empty((H, W), dtype=torch.int32, device=agg.device)

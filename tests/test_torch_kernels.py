@@ -6,15 +6,17 @@ only; the port's volumes carry exactly D disparities, in (H, W, D) where the
 TPU kernels read (W, H, D) or (D, H, W) transposes), and the summed-volume
 ops against the reference's XLA ones (``aggregate_dual``'s chain mode,
 ``aggregate_dir`` and ``wta`` are held against the reference in
-``tests/test_torch_parallel.py``). On a card (marked ``cuda``, skipped
-elsewhere): each CUDA kernel is held exactly against its plain version.
+``tests/test_torch_parallel.py``, the measurement kernels of ``bench_cuda``
+in ``tests/test_torch_scripts.py``). On a card (marked ``cuda``, skipped
+elsewhere): each CUDA kernel is held exactly against its plain version, the
+measurement variants too, at ragged shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from stereovision_tpu_torch.ops import _build, sgm_cuda
+from stereovision_tpu_torch.ops import _build, bench_cuda, sgm_cuda
 
 RNG = np.random.default_rng(23)
 
@@ -275,7 +277,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     sgm_cuda.aggregate_dual(cost, 8.0, 96.0, boundary=(z, z), return_final=True, cost_b=cost)
     s = sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=1)
     sgm_cuda.wta(sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=0, acc=s))
-    assert sgm_cuda.launch_counts() == {name: 0 for name in sgm_cuda.COUNTS}
+    # the measurement kernels of bench_cuda count in the same dict
+    assert sgm_cuda.launch_counts() == {name: 0 for name in (*sgm_cuda.COUNTS,
+                                                             *bench_cuda.COUNTS)}
     assert len(sgm_cuda.KERNEL_WRAPPERS) == 10
     assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS} | {
         "aggregate_dual_chain"}
@@ -338,6 +342,67 @@ def test_library_path_names_the_source_hash():
         assert (_build.CSRC / f"{name}.cu").exists()
 
 
+def test_variant_libraries_build_from_the_shipping_sources():
+    """Each variant library is its shipping source built again with
+    -DSVT_VARIANTS: the same file, another library."""
+    assert set(_build.LIBRARIES) == set(_build.KERNELS) | set(_build.VARIANTS)
+    for name, src in _build.VARIANTS.items():
+        assert _build.source(name) == _build.CSRC / f"{src}.cu" and src in _build.KERNELS
+        assert "SVT_VARIANTS" in _build.source(name).read_text()
+        assert _build.library_path(name) != _build.library_path(src)
+
+
+def _meta(shape, dtype):
+    """A tensor that is neither on the CPU nor on a card: the wrappers'
+    argument checks run, and nothing can launch."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("D,raises", [(1025, NotImplementedError), (1024, ValueError)])
+def test_register_kernels_take_at_most_1024_disparities(D, raises):
+    """Past 1024 disparities (32 a lane in registers) the kernels refuse
+    before any other check; at 1024 they go on to the device check."""
+    i8, f32 = _meta((2, 3, D), torch.int8), _meta((2, 3, D), torch.float32)
+    calls = [lambda: sgm_cuda.aggregate_dual(i8, 8.0, 96.0),
+             lambda: sgm_cuda.aggregate_dir(f32, 8.0, 96.0),
+             lambda: sgm_cuda.wta_stats_from_duals(i8, i8),
+             lambda: sgm_cuda.wta(f32),
+             lambda: bench_cuda.sum_wta(i8, i8, i8, i8),
+             lambda: bench_cuda.right_disparity_variants(i8, "staged")]
+    for call in calls:
+        with pytest.raises(raises, match="1024" if raises is NotImplementedError else "CUDA"):
+            call()
+
+
+def test_aggregate_dir_wta_out_needs_axis_0():
+    """As the reference asserts (``sgm_pallas.py:666``), on any device."""
+    with pytest.raises(ValueError, match="axis-0"):
+        sgm_cuda.aggregate_dir(torch.zeros((4, 5, 8)), 8.0, 96.0, axis=1, wta_out=True)
+    with pytest.raises(ValueError, match="axis-0"):
+        sgm_cuda.aggregate_dir(_meta((4, 5, 8), torch.float32), 8.0, 96.0, axis=1, wta_out=True)
+
+
+@pytest.mark.parametrize("reverse,with_acc", [(False, False), (True, True)])
+def test_aggregate_dir_wta_out_plain_matches_pallas(pallas, reverse, with_acc):
+    """``wta_out``: the statistics of the volume written, against the
+    reference's ``aggregate_dir(..., wta_out=True)`` in interpret mode; 13
+    rows (not a multiple of its block of 8), D = 128; values 0..6 make ties."""
+    import jax.numpy as jnp
+
+    cost = RNG.integers(0, 7, (13, 20, 128)).astype(np.float32)
+    acc = RNG.integers(0, 300, (13, 20, 128)).astype(np.float32) if with_acc else None
+    ref = pallas.aggregate_dir(jnp.asarray(cost), 8.0, 32.0, axis=0, reverse=reverse,
+                               acc=None if acc is None else jnp.asarray(acc), wta_out=True,
+                               interpret=True)
+    out = sgm_cuda.aggregate_dir(torch.from_numpy(cost), 8.0, 32.0, axis=0, reverse=reverse,
+                                 acc=None if acc is None else torch.from_numpy(acc.copy()),
+                                 wta_out=True)
+    assert len(out) == len(ref) == 6
+    for o, r in zip(out, ref):
+        assert o.numpy().dtype == np.asarray(r).dtype
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels against their plain versions (on a card)
 # ---------------------------------------------------------------------------
@@ -395,9 +460,11 @@ def test_kernels_reject_wrong_dtype(cuda):
 
 @pytest.mark.cuda
 def test_aggregate_dual_kernel_raises_past_512_disparities(cuda):
+    """The bound moved from 512 to 1024 (32 values a lane)."""
     before = sgm_cuda.launch_counts()["aggregate_dual"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sgm_cuda.aggregate_dual(torch.zeros((2, 3, 513), dtype=torch.int8, device=cuda), 8.0, 96.0)
+    with pytest.raises(NotImplementedError, match="1024"):
+        sgm_cuda.aggregate_dual(torch.zeros((2, 3, 1025), dtype=torch.int8, device=cuda), 8.0,
+                                96.0)
     assert sgm_cuda.launch_counts()["aggregate_dual"] == before
 
 
@@ -547,7 +614,159 @@ def test_chain_dir_and_wta_kernels_reject_bad_dtypes_and_modes(cuda):
         with pytest.raises(ValueError):
             sgm_cuda.aggregate_dual(cost, 8.0, 96.0, **kw)
     for fn in (sgm_cuda.aggregate_dir, sgm_cuda.wta):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn(torch.zeros((2, 3, 513), device=cuda), *((8.0, 96.0) if fn is not sgm_cuda.wta
-                                                         else ()))
+        with pytest.raises(NotImplementedError, match="1024"):
+            fn(torch.zeros((2, 3, 1025), device=cuda), *((8.0, 96.0) if fn is not sgm_cuda.wta
+                                                          else ()))
+    assert sgm_cuda.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# Up to 1024 disparities, and aggregate_dir's wta_out (on a card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [640, 1000, 1024])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_aggregate_dual_kernel_past_512(cuda, D, axis):
+    """32 values a lane (V = 20, 32, 32); int8 stores reach the clamp."""
+    cost = torch.from_numpy(RNG.integers(0, 61, size=(9, 12, D)).astype(np.int8)).to(cuda)
+    for dtype in (torch.int8, torch.int16):
+        got = sgm_cuda.aggregate_dual(cost, 8.0, 96.0, axis=axis, out_dtype=dtype)
+        torch.cuda.synchronize()
+        want = sgm_cuda.aggregate_dual_plain(cost, 8.0, 96.0, axis=axis, out_dtype=dtype)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [640, 1024])
+def test_register_kernels_past_512(cuda, D):
+    """aggregate_dir (both axes, with acc), the chain mode, wta_stats_from_duals
+    (int8, d_valid < D) and wta at 640 and 1024 disparities."""
+    costf = torch.from_numpy(RNG.integers(0, 40, size=(7, 11, D)).astype(np.float32)).to(cuda)
+    acc = torch.from_numpy(RNG.integers(0, 500, size=(7, 11, D)).astype(np.float32)).to(cuda)
+    for axis in (0, 1):
+        got = sgm_cuda.aggregate_dir(costf, 8.0, 96.0, axis, True, acc.clone())
+        assert torch.equal(got, sgm_cuda.aggregate_dir_plain(costf, 8.0, 96.0, axis, True,
+                                                             acc.clone()))
+    cost = torch.from_numpy(RNG.integers(0, 61, size=(7, 11, D)).astype(np.int8)).to(cuda)
+    bf, bb = _seeds((11, D), cuda), _seeds((11, D), cuda)
+    got = sgm_cuda.aggregate_dual(cost, 8.0, 96.0, boundary=(bf, bb), return_final=True)
+    want = sgm_cuda.aggregate_dual_plain(cost, 8.0, 96.0, boundary=(bf, bb), return_final=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    hf, hb = (torch.from_numpy(RNG.integers(0, 128, size=(7, 11, D)).astype(np.int8)).to(cuda)
+              for _ in range(2))
+    got = sgm_cuda.wta_stats_from_duals(hf, hb, D - 37)
+    want = sgm_cuda.wta_stats_from_duals_plain(hf, hb, D - 37)
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    agg = torch.from_numpy(RNG.integers(0, 7, size=(7, 11, D)).astype(np.float32)).to(cuda)
+    assert all(torch.equal(g, w) for g, w in zip(sgm_cuda.wta(agg), sgm_cuda.wta_plain(agg)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 45, 320, 1024])
+@pytest.mark.parametrize("reverse,with_acc", [(False, False), (True, True)])
+def test_aggregate_dir_wta_out_kernel(cuda, D, reverse, with_acc):
+    """The statistics the kernel takes from each row it stores equal
+    aggregate_dir followed by wta; values 0..6 make ties."""
+    cost = torch.from_numpy(RNG.integers(0, 7, size=(21, 37, D)).astype(np.float32)).to(cuda)
+    acc = (torch.from_numpy(RNG.integers(0, 50, size=(21, 37, D)).astype(np.float32)).to(cuda)
+           if with_acc else None)
+    before = sgm_cuda.launch_counts()["aggregate_dir"]
+    got = sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, reverse,
+                                 None if acc is None else acc.clone(), wta_out=True)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["aggregate_dir"] == before + 1
+    out = sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, reverse, None if acc is None else acc.clone())
+    want = (out, *sgm_cuda.wta(out))
+    plain = sgm_cuda.aggregate_dir_wta_plain(cost, 8.0, 96.0, 0, reverse,
+                                             None if acc is None else acc.clone())
+    for g, w, p in zip(got, want, plain):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, p)
+
+
+# ---------------------------------------------------------------------------
+# The measurement kernels of bench_cuda against their plain versions, at
+# ragged shapes: D not a multiple of 32, lines and pixels not a multiple of
+# the warps per block (on a card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [29, 32, 45, 128])
+@pytest.mark.parametrize("variant", list(bench_cuda.AGG_VARIANTS))
+def test_aggregate_dual_variant_kernel(cuda, variant, D):
+    if variant == "gm_interleave5" and D > 32:
+        pytest.skip("gm_interleave5 carries lines of at most 32 planes")
+    cost = torch.from_numpy(RNG.integers(0, 61, size=(23, 37, D)).astype(np.int8)).to(cuda)
+    if variant == "f32in":
+        cost = cost.float()
+    before = sgm_cuda.launch_counts()["aggregate_dual_variants"]
+    got = bench_cuda.aggregate_dual_variants(cost, variant, 8.0, 96.0, bs=4)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["aggregate_dual_variants"] == before + 1
+    want = bench_cuda.aggregate_dual_variants_plain(cost, variant, 8.0, 96.0, bs=4)
+    assert len(got) == len(want)
+    assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,d_valid", [(32, 32), (45, 30), (128, 128)])
+@pytest.mark.parametrize("variant", list(bench_cuda.WTA_VARIANTS))
+def test_wta_stats_variant_kernel(cuda, variant, D, d_valid):
+    hf, hb = (torch.from_numpy(RNG.integers(0, 128, size=(13, 71, D)).astype(np.int8)).to(cuda)
+              for _ in range(2))
+    got = bench_cuda.wta_stats_variants(hf, hb, variant, d_valid)
+    torch.cuda.synchronize()
+    want = bench_cuda.wta_stats_variants_plain(hf, hb, variant, d_valid)
+    assert len(got) == len(want)
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,d_valid", [(torch.int8, 32, 32), (torch.int16, 107, 90),
+                                             (torch.int16, 320, 320), (torch.int16, 1024, 1000)])
+@pytest.mark.parametrize("variant", list(bench_cuda.RDISP_VARIANTS))
+def test_right_disparity_variant_kernel(cuda, variant, dtype, D, d_valid):
+    """W = 140: shorter than the staged band at D = 320 (the last columns
+    reach few planes); values make ties."""
+    lo, hi = (-128, 127) if dtype == torch.int8 else (0, 600)
+    s = torch.randint(lo, hi, (5, 140, D), dtype=dtype).to(cuda)
+    arg = s.permute(2, 0, 1).contiguous() if variant == "transposed" else s
+    got = bench_cuda.right_disparity_variants(arg, variant, d_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sgm_cuda.right_disparity_plain(s, d_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,d_valid", [(40, 40), (45, 30), (384, 320), (1024, 1000)])
+@pytest.mark.parametrize("emit", list(bench_cuda.EMITS))
+def test_sum_wta_kernel(cuda, emit, D, d_valid):
+    vols = [torch.from_numpy(RNG.integers(0, 120, size=(7, 13, D)).astype(np.int8)).to(cuda)
+            for _ in range(4)]
+    before = sgm_cuda.launch_counts()["sum_wta"]
+    got = bench_cuda.sum_wta(*vols, d_valid=d_valid, emit=emit)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["sum_wta"] == before + 1
+    want = bench_cuda.sum_wta_plain(*vols, d_valid=d_valid, emit=emit)
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
+
+
+@pytest.mark.cuda
+def test_measurement_kernels_reject_bad_inputs(cuda):
+    before = sgm_cuda.launch_counts()
+    i16 = torch.zeros((4, 5, 32), dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError):
+        bench_cuda.sum_wta(i16, i16, i16, i16)
+    with pytest.raises(TypeError):
+        bench_cuda.aggregate_dual_variants(i16, "shipping")
+    with pytest.raises(TypeError):
+        bench_cuda.wta_stats_variants(i16, i16, "base")
+    with pytest.raises(NotImplementedError):
+        bench_cuda.aggregate_dual_variants(torch.zeros((4, 5, 33), dtype=torch.int8, device=cuda),
+                                           "gm_interleave5")
+    with pytest.raises(ValueError):
+        bench_cuda.right_disparity_variants(i16.transpose(0, 1), "in_place")
     assert sgm_cuda.launch_counts() == before
