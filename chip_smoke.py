@@ -30,7 +30,10 @@ of which raises (exit code non-zero, no result line) on failure:
 5. time each path (3 warm-up frames, 20 timed, CUDA events), each kernel's
    launches of one frame of each path (replayed on their recorded inputs)
    beside their bound, plain version and (for shift_gather)
-   ``torch.gather``, and the stages around them;
+   ``torch.gather``, and the stages around them; each kernel's replay, and
+   ``torch.gather``'s, is timed twice: with events around 20 calls (host
+   included) and as 20 replays of a CUDA graph that captured it once (the
+   device alone, ``device_ms``);
 6. the exact row-tiled engine (``SGMParams(num_disparities=320)``) on
    ``make_mesh(frame=1, tile=4, devices=["cuda:0"] * 4)``: the sweep
    strategy on 2 flat-rig frames, the pipelined one on 4, each recorded
@@ -49,16 +52,30 @@ of which raises (exit code non-zero, no result line) on failure:
    forms and each launch to its plain version;
 9. time the two exact strategies (ms per frame; four tiles share one card,
    so this is no scaling number), the chain-mode launches, ``aggregate_dir``
-   and ``wta``, each beside its bound, and the host time of one launch
-   with and without a device switch (:func:`launch_host_us`);
+   and ``wta``, each beside its bound (events, and the device alone), the
+   host time of one launch with and without a device switch, through the
+   wrapper, as the wrapper's launch path was before it read the raw stream
+   handle, and of one ``torch.gather`` (:func:`launch_host_us`), and of one
+   call of each kernel's wrapper (:func:`wrapper_host_us`);
 10. the measurement scripts at their full shapes (``bench_agg_step``,
    ``bench_wta_variants``, ``bench_rdisp`` at D=128 and 320,
    ``bench_sumwta`` at D=128, 384 and 320), each run with the launch
    counts set to 0 just before and read just after: every variant kernel
    is held against its plain version (exact) and timed beside its bound,
-   and its family must have launched; then ``aggregate_dir``'s ``wta_out``
-   at 720x1280x320 against its plain version, timed beside the plain
-   ``aggregate_dir`` launch.
+   and its family must have launched; the shipping ``aggregate_dual``
+   against the earlier design (``bench_agg_step``'s ``shipping`` variant)
+   on axis 0 at the script's (1280, 736, 32) view, the full search's
+   columns and an exact-engine slab (D=320): equal outputs, timed in turns
+   (earlier, staged, staged, earlier); the shipping
+   ``aggregate_dual`` at the engine's shapes (``STAGED_SHAPES``) beside its
+   ablations (``bench_cuda.aggregate_staged_variants``: no recurrence, the
+   staging and flushing alone, the scan alone), device alone; then ``aggregate_dir``'s
+   ``wta_out`` at 720x1280x320 against its plain version, timed beside the
+   plain ``aggregate_dir`` launch.
+
+Every row of the kernels line has ``device_ms`` (the device alone) beside
+``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
+and ``host_us`` (one wrapper call, :func:`wrapper_host_us`).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card; before that, one ``{"kernels": [...]}`` line.
@@ -118,6 +135,21 @@ SLICE4_KERNELS = {
     "right_disparity_variants": ("right_disparity.cu", "scripts/bench_rdisp.py:84",
                                  "in_place D={D}"),
 }
+# each kernel's design, as the kernels line names it: "staged ring" and "row
+# grid" are the redesigns of aggregate_dual (a shared-memory ring filled by
+# cp.async, a redux min) and shift_gather (a row a grid row, 16-byte
+# vectors); every other kernel keeps the design it was first ported with
+DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring",
+           "shift_gather": "row grid"}
+FIRST_DESIGN = "first port"
+# the shapes at which phase 10 takes the shipping aggregate_dual apart:
+# label, (H, W, D), axis
+STAGED_SHAPES = (("the stacked refine", (960, W, 32), 1),
+                 ("the coarse search", (H // 3, 426, 107), 1),
+                 ("the script's view", (1280, 736, 32), 0),
+                 ("the full search, rows", (H, W, D), 1),
+                 ("the full search, columns", (H, W, D), 0),
+                 ("an exact-engine slab", (H // 4, W, D), 0))
 # stages of the production frame, timed by replaying their recorded calls
 STAGES = {
     "im": ("remap", "resize", "median_blur"),
@@ -193,6 +225,22 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, label: str):
+    """Milliseconds per call of ``fn`` on the device alone (replays of a
+    CUDA graph captured once; ``scripts._measure.graph_ms``), or None, with
+    the reason printed, where ``fn`` cannot be captured."""
+    from stereovision_tpu_torch.scripts._measure import graph_ms
+
+    ms, why = graph_ms(fn)
+    if ms is None:
+        print(f"device time of {label} not measured: {why}")
+    return ms
+
+
+def fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -346,10 +394,15 @@ def launch_host_us(torch, sgm_cuda, n: int = 2000):
     """Host µs per launch of shift_gather on one 32-pixel row (host-bound):
     its C entry called bare on the current stream, the same under
     ``torch.cuda.device`` (the device switch ``sgm_cuda._launch`` makes only
-    for a tensor off the current device), and the whole wrapper. Run in the
-    order ABCCBA; the faster of each pair."""
+    for a tensor off the current device), the whole wrapper, the wrapper as
+    it was before its launch path read the raw stream handle (``before``: a
+    ``torch.cuda.Stream`` object built and the device looked up through
+    ``torch.cuda`` at each launch, every check in full), and one
+    ``torch.gather`` call on the same row. Run in the order ABCDEEDCBA; the
+    faster of each pair."""
     src = torch.zeros((1, 32), device="cuda")
     off = torch.zeros((1, 32), dtype=torch.int32, device="cuda")
+    idx = torch.zeros((1, 32), dtype=torch.int64, device="cuda")
     out = torch.empty_like(src)
     sgm_cuda.shift_gather(src, off, 1)  # loads the kernel's library
     fn, dev = sgm_cuda._fns["shift_gather"], src.device
@@ -359,8 +412,31 @@ def launch_host_us(torch, sgm_cuda, n: int = 2000):
         with torch.cuda.device(dev):
             fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
+    def before():
+        if src.shape[-2:] != off.shape or src.device.type == "cpu":
+            raise ValueError("shapes")
+        if src.dtype not in (torch.float32, torch.int32) or src.ndim not in (2, 3):
+            raise TypeError("src")
+        for t, dt, nd in ((src, src.dtype, src.ndim), (off, torch.int32, 2)):
+            if (t.device.type != "cuda" or t.dtype != dt or t.ndim != nd
+                    or not t.is_contiguous()):
+                raise ValueError("check")
+        o = torch.empty_like(src)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if dev.index != torch.cuda.current_device():
+            raise RuntimeError("off the current device")
+        if fn(src.data_ptr(), off.data_ptr(), o.data_ptr(), 1, 1, 32, 1, stream):
+            raise RuntimeError("launch")
+
     forms = {"bare": lambda: fn(*args, torch.cuda.current_stream().cuda_stream),
-             "switched": switched, "wrapper": lambda: sgm_cuda.shift_gather(src, off, 1)}
+             "switched": switched, "wrapper": lambda: sgm_cuda.shift_gather(src, off, 1),
+             "before": before, "gather": lambda: torch.gather(src, -1, idx)}
+    return host_us(torch, forms, n)
+
+
+def host_us(torch, forms, n: int):
+    """Host µs per call of each form (name → callable), each timed twice in
+    the order ABC...CBA; the faster of the two."""
     us = {}
     for name in list(forms) + list(reversed(forms)):
         torch.cuda.synchronize()
@@ -373,8 +449,40 @@ def launch_host_us(torch, sgm_cuda, n: int = 2000):
     return us
 
 
+def wrapper_host_us(torch, sgm_cuda, n: int = 1000):
+    """Host µs of one call of each kernel wrapper (all share
+    ``sgm_cuda._launch``) on an input too small to keep the card busy: an
+    8x32 image or map, an (8, 32, 2) volume."""
+    img = torch.zeros((8, 32), device="cuda")
+    valid = img > 0
+    off = torch.zeros((8, 32), dtype=torch.int32, device="cuda")
+    words = torch.zeros((1, 8, 32), dtype=torch.int32, device="cuda")
+    vol8 = torch.zeros((8, 32, 2), dtype=torch.int8, device="cuda")
+    volf = torch.zeros((8, 32, 2), device="cuda")
+    seed = torch.zeros((32, 2), device="cuda")
+    forms = {
+        "census_words": lambda: sgm_cuda.census_words(img),
+        "cost_volume": lambda: sgm_cuda.cost_volume(words, words, 2, 0, 24),
+        "aggregate_dual": lambda: sgm_cuda.aggregate_dual(vol8, 8.0, 96.0, axis=1,
+                                                          out_dtype=torch.int8),
+        "aggregate_dual_chain": lambda: sgm_cuda.aggregate_dual(
+            vol8, 8.0, 96.0, boundary=(seed, seed), return_final=True),
+        "aggregate_dir": lambda: sgm_cuda.aggregate_dir(volf, 8.0, 96.0),
+        "wta_stats_from_duals": lambda: sgm_cuda.wta_stats_from_duals(vol8, vol8),
+        "right_disparity": lambda: sgm_cuda.right_disparity(vol8),
+        "shift_gather": lambda: sgm_cuda.shift_gather(img, off, 1),
+        "speckle_counts": lambda: sgm_cuda.speckle_counts(img, 5, 32.0, 6),
+        "nearest_valid_lohi": lambda: sgm_cuda.nearest_valid_lohi(img, valid, img),
+        "wta": lambda: sgm_cuda.wta(volf),
+    }
+    for f in forms.values():  # builds and loads each library before the clock
+        f()
+    return host_us(torch, forms, n)
+
+
 def parallel_phases(torch, card: str):
-    """Phases 6-9; returns the kernels-line rows of the three kernels."""
+    """Phases 6-9; returns the kernels-line rows of the three kernels and
+    the host µs of a launch (:func:`launch_host_us`, :func:`wrapper_host_us`)."""
     from stereovision_tpu_torch import parallel
     from stereovision_tpu_torch.ops import sgm_cuda
     from stereovision_tpu_torch.stereo import SGMParams, production_preset, sgm
@@ -514,9 +622,11 @@ def parallel_phases(torch, card: str):
                      f"sgm._wta's launch at {H}x{W}x{D} float32, replayed")}
     one = chain[:1]
     one_ms = cuda_ms(torch, replay(sgm_cuda.aggregate_dual, one), 20, warmup=3)
+    one_dev = device_ms(replay(sgm_cuda.aggregate_dual, one), "one chain launch")
     b1 = bound_ms(*tally({"aggregate_dual_chain": one}))
     print(f"kernel aggregate_dual_chain: one launch on a {tuple(one[0][0][0].shape)} slab with "
-          f"cost_b: {one_ms:.4f} ms, bound {b1[0]:.4f} ms ({b1[1]})")
+          f"cost_b: {one_ms:.4f} ms, device alone {fmt(one_dev)}, bound {b1[0]:.4f} ms "
+          f"({b1[1]})")
     for a, kw in vol_calls["aggregate_dir"]:
         l_ms = cuda_ms(torch, replay(sgm_cuda.aggregate_dir, [(a, kw)]), 5, warmup=1)
         lb = bound_ms(*tally({"aggregate_dir": [(a, kw)]}))
@@ -524,31 +634,39 @@ def parallel_phases(torch, card: str):
               f"acc {kw.get('acc') is not None}: {l_ms:.4f} ms, bound {lb[0]:.4f} ms ({lb[1]})")
     for kname, (fn, calls, n_launches, how) in timed.items():
         ms = cuda_ms(torch, replay(fn, calls), 5 if kname == "aggregate_dir" else 20, warmup=1)
+        dev = device_ms(replay(fn, calls), kname)
         plain_ms = cuda_ms(torch, replay(plain_of(sgm_cuda, kname), calls), 1, warmup=0)
         nbytes, ops = tally({kname: calls})
         b_ms, b_by = bound_ms(nbytes, ops)
-        print(f"kernel {kname}: {ms:.4f} ms for {len(calls)} launches ({how}), bound "
-              f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), "
-              f"plain {plain_ms:.2f} ms")
+        print(f"kernel {kname}: {ms:.4f} ms for {len(calls)} launches ({how}), device alone "
+              f"{fmt(dev)}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} G operations), plain {plain_ms:.2f} ms")
         src, line, _ = SLICE3_KERNELS[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}",
             "replaces": f"{REPLACES}:{line}", "launches": n_launches,
-            "max_abs_err": errs[kname], "parity": "exact", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "timed_as": how,
+            "max_abs_err": errs[kname], "parity": "exact", "ms": ms, "device_ms": dev,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "design": DESIGNS.get(kname, FIRST_DESIGN), "timed_as": how,
         })
     rows[0]["launches_sweep"] = runs["sweep"][2]["aggregate_dual_chain"]
+    rows[0]["one_launch_ms"], rows[0]["one_launch_device_ms"] = one_ms, one_dev
     us = launch_host_us(torch, sgm_cuda)
     print(f"launch host time: {us['bare']:.2f} µs bare, {us['switched']:.2f} µs under "
           f"torch.cuda.device, {us['wrapper']:.2f} µs through the shift_gather wrapper "
-          f"(on the current device: no switch), card {card}")
-    return rows
+          f"(on the current device: no switch; {us['before']:.2f} µs through the wrapper's "
+          f"launch path before the raw stream handle), {us['gather']:.2f} µs a torch.gather "
+          f"call on the same row, card {card}")
+    per_kernel = wrapper_host_us(torch, sgm_cuda)
+    print("wrapper host time a launch (8x32 inputs): "
+          + ", ".join(f"{k} {v:.2f} µs" for k, v in per_kernel.items()) + f", card {card}")
+    return rows, {"shift_gather": us, "wrappers": per_kernel}
 
 
 def script_phases(torch, card: str):
     """Phase 10; returns the kernels-line rows of the four measurement
     kernel families."""
-    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
     from stereovision_tpu_torch.scripts import (bench_agg_step, bench_rdisp, bench_sumwta,
                                                 bench_wta_variants)
 
@@ -581,10 +699,67 @@ def script_phases(torch, card: str):
         rows.append({
             "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
             "launches": counts[kname], "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-            "parity": "exact", "ms": pick["ms"], "plain_ms": pick["plain_ms"],
-            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"], "library_ms": None,
+            "parity": "exact", "ms": pick["ms"], "device_ms": pick["device_ms"],
+            "plain_ms": pick["plain_ms"], "bound_ms": pick["bound_ms"],
+            "bound_by": pick["bound_by"], "library_ms": None, "design": FIRST_DESIGN,
             "timed_as": f"the {label} row of the script's run (20 launches after 3 warm-up)",
         })
+
+    # the shipping aggregate_dual against the earlier design (the variants'
+    # "shipping") on axis 0, in turns: the script's (1280, 736, 32) view, and
+    # the full search's columns and an exact-engine slab at D=320
+    pa = (bench_agg_step.P1, bench_agg_step.P2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ab_all = {}
+    for label, x in (("the script's view", bench_agg_step.variant_input(
+                          bench_agg_step.make_cost(torch.device("cuda")), "shipping")),
+                     ("the full search, columns", torch.randint(
+                         0, 61, (H, W, D), dtype=torch.int8, device="cuda", generator=gen)),
+                     ("an exact-engine slab", torch.randint(
+                         0, 61, (H // 4, W, D), dtype=torch.int8, device="cuda", generator=gen))):
+        forms = {"earlier": lambda x=x: bench_cuda.aggregate_dual_variants(x, "shipping", *pa,
+                                                                            bench_agg_step.BS),
+                 "staged": lambda x=x: sgm_cuda.aggregate_dual(x, *pa, axis=0,
+                                                               out_dtype=torch.int8)}
+        got, want = forms["staged"](), forms["earlier"]()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"the staged aggregate_dual differs from the earlier design at {label}")
+        del got, want
+        ab = {name: [] for name in forms}
+        for name in ("earlier", "staged", "staged", "earlier"):
+            ab[name].append((cuda_ms(torch, forms[name], 20, warmup=3),
+                             device_ms(forms[name], f"aggregate_dual {name} at {label}")))
+        print(f"aggregate_dual at {label} {tuple(x.shape)} int8, axis 0, in turns (earlier, "
+              f"staged, staged, earlier), equal outputs: " + "; ".join(
+                  f"{name} " + ", ".join(f"{ms:.4f} ms (device alone {fmt(dev)})" for ms, dev in v)
+                  for name, v in ab.items()) + f", card {card}")
+        ab_all[label] = ab
+        del x
+    agg_row = next(r for r in rows if r["name"] == "aggregate_dual_variants")
+    agg_row["staged_ab"] = ab_all
+
+    # which part of the shipping aggregate_dual holds its time: the kernel
+    # with its recurrence, its scan or its staging and flushing taken out, on
+    # seeded costs at the shapes the engine gives it (device alone)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    table = {}
+    for label, shape, axis in STAGED_SHAPES:
+        cost = torch.randint(0, 61, shape, dtype=torch.int8, device="cuda", generator=gen)
+        forms = {"full": lambda: sgm_cuda.aggregate_dual(cost, 8.0, 96.0, axis=axis,
+                                                         out_dtype=torch.int8)}
+        forms.update({f: (lambda f=f: bench_cuda.aggregate_staged_variants(cost, f, axis=axis))
+                      for f in bench_cuda.STAGED_FORMS})
+        got = forms["no_recurrence"]()
+        check(all(torch.equal(g, w) for g, w in
+                  zip(got, bench_cuda.aggregate_staged_variants_plain(cost, "no_recurrence"))),
+              "the staged no_recurrence ablation differs from its plain version")
+        table[label] = {f: device_ms(fn, f"staged {f} at {label}") for f, fn in forms.items()}
+        b_ms = bound_ms(*work("aggregate_dual", (cost, 8.0, 96.0, axis, torch.int8), {}))[0]
+        print(f"aggregate_dual (staged) at {label} {shape} axis {axis}, int8, device alone: "
+              + ", ".join(f"{f} {fmt(ms)}" for f, ms in table[label].items())
+              + f"; bound {b_ms:.4f} ms, card {card}")
+        del cost, got
+    agg_row["staged_ablations"] = table
 
     # aggregate_dir's wta_out at the engine's full-search shape
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -774,17 +949,19 @@ def main() -> int:
             if len(groups) > 1:
                 for shapes, g in groups.items():
                     g_ms = cuda_ms(torch, replay(fn, g), 20, warmup=3)
+                    g_dev = device_ms(replay(fn, g), f"{kname} ({path}) at {shapes}")
                     nb = sum(work(kname, a, k)[0] for a, k in g)
                     ops = sum(work(kname, a, k)[1] for a, k in g)
                     b_ms, b_by = bound_ms(nb, ops)
                     print(f"kernel {kname} ({path}) at {shapes}: {g_ms:.4f} ms for {len(g)} "
-                          f"launch(es), bound {b_ms:.4f} ms ({b_by})")
+                          f"launch(es), device alone {fmt(g_dev)}, bound {b_ms:.4f} ms ({b_by})")
             ms = cuda_ms(torch, replay(fn, calls), 20, warmup=3)
+            dev = device_ms(replay(fn, calls), f"{kname} ({path})")
             plain_ms = cuda_ms(torch, replay(plain, calls), 2)
             nbytes = sum(work(kname, a, k)[0] for a, k in calls)
             ops = sum(work(kname, a, k)[1] for a, k in calls)
             b_ms, b_by = bound_ms(nbytes, ops)
-            library_ms = None
+            library_ms = library_dev = None
             if kname == "shift_gather":
                 # torch.gather computes the same function where off ≤ x and
                 # off < max_offset, which holds at every call of the path
@@ -794,29 +971,44 @@ def main() -> int:
                     x = torch.arange(off.shape[-1], device=off.device)
                     idx = (x - off.long()).clamp(min=0).expand(srcv.shape).contiguous()
                     gathers.append((srcv, idx))
-                library_ms = cuda_ms(torch, lambda: [torch.gather(s_, -1, i_) for s_, i_ in gathers],
-                                     20, warmup=3)
-            print(f"kernel {kname} ({path}): {ms:.4f} ms per frame ({len(calls)} launches), bound "
-                  f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), "
-                  f"plain {plain_ms:.2f} ms"
-                  + (f", torch.gather {library_ms:.4f} ms" if library_ms is not None else "")
+
+                def gather_all(gathers=gathers):
+                    return [torch.gather(s_, -1, i_) for s_, i_ in gathers]
+
+                library_ms = cuda_ms(torch, gather_all, 20, warmup=3)
+                library_dev = device_ms(gather_all, f"torch.gather ({path})")
+            print(f"kernel {kname} ({path}): {ms:.4f} ms per frame ({len(calls)} launches), device "
+                  f"alone {fmt(dev)}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.2f} G operations), plain {plain_ms:.2f} ms"
+                  + (f", torch.gather {library_ms:.4f} ms, device alone {fmt(library_dev)}"
+                     if library_ms is not None else "")
                   + f", {100 * ms / frame_ms[path]:.1f}% of the frame")
             if path == "production":
                 rows.append({
                     "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}",
                     "replaces": f"{REPLACES}:{line}", "launches": launches["production"][kname],
-                    "max_abs_err": errs[kname], "parity": "exact", "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                    "max_abs_err": errs[kname], "parity": "exact", "ms": ms, "device_ms": dev,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": library_ms, "library_device_ms": library_dev,
+                    "design": DESIGNS.get(kname, FIRST_DESIGN),
                     "timed_as": "the production frame's launches, replayed on their inputs",
                 })
+            elif kname == "shift_gather":
+                lr_full = {"ms": ms, "device_ms": dev, "library_ms": library_ms,
+                           "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
+    next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
     del recorded, prod
     torch.cuda.empty_cache()
-    rows += parallel_phases(torch, card)
+    chain_rows, host = parallel_phases(torch, card)
+    rows += chain_rows
     torch.cuda.empty_cache()
     rows += script_phases(torch, card)
     check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS) + len(SLICE4_KERNELS),
           "a kernel row is missing")
+    for r in rows:  # host µs of one launch through the wrapper, on a tiny input
+        r["host_us"] = host["wrappers"].get(r["name"])
+    next(r for r in rows if r["name"] == "shift_gather")["host_us_forms"] = host["shift_gather"]
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

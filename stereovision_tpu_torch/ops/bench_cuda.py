@@ -5,7 +5,12 @@ package's four TPU measurement scripts, each beside its plain version.
   four path volumes summed, their winner statistics and optionally the
   int16 sum, in one read of each volume (``csrc/sum_wta.cu``).
 - :func:`aggregate_dual_variants` ← ``scripts/bench_agg_step.py:216``:
-  ablations of ``aggregate_dual``'s recurrence (``csrc/aggregate.cu``).
+  ablations of ``aggregate_dual``'s recurrence (``csrc/aggregate.cu``), on
+  the earlier design of that kernel, the one the script's variants were
+  written against.
+- :func:`aggregate_staged_variants`: the shipping (staged) ``aggregate_dual``
+  with its recurrence, its scan or its staging and flushing taken out (no
+  TPU counterpart: they say which part of that design holds its time).
 - :func:`wta_stats_variants` ← ``scripts/bench_wta_variants.py:149``:
   ablations of ``wta_stats_from_duals`` (``csrc/wta_stats.cu``).
 - :func:`right_disparity_variants` ← ``scripts/bench_rdisp.py:84``:
@@ -125,7 +130,9 @@ _SHIP, _RAW, _NORM_STORE_N, _NO_GROUPMIN, _NO_SHIFTS, _NO_STORE, _COPY, _INTERLE
 _FWD_ONLY = 16
 # variant → (kernel code, warps per block, float32 cost)
 AGG_VARIANTS = {
-    "shipping": (_SHIP, 4, False),  # the shipping kernel: the script's full_raw function
+    # the earlier design's shipping kernel (the script's full_raw function);
+    # the name is the script's
+    "shipping": (_SHIP, 4, False),
     "full_raw": (_RAW, 4, False),
     "full_norm": (_NORM_STORE_N, 4, False),
     "no_groupmin": (_NO_GROUPMIN, 4, False),
@@ -213,14 +220,16 @@ def aggregate_dual_variants(cost: torch.Tensor, variant: str, p1: float = 8.0,
     for ``f32in``) → int8 (L_fwd, L_bwd) of ``variant`` (a key of
     :data:`AGG_VARIANTS`; (L_fwd,) for fwd_only and copy1; for no_store
     compact (ceil(S/bs), L, D) volumes). D ≤ 128 (≤ 32 for gm_interleave5,
-    which carries 4 lines a warp). See :func:`aggregate_dual_variants_plain`."""
+    which carries 4 lines a warp; ≤ 384 for shipping, to be timed beside the
+    shipping kernel at the full search's D). See
+    :func:`aggregate_dual_variants_plain`."""
     code, wpb, f32 = _agg_variant(variant)
     if bs < 1:
         raise ValueError(f"bs must be positive, got {bs}")
     if cost.device.type == "cpu":
         return aggregate_dual_variants_plain(cost, variant, p1, p2, bs)
     S, L, D = cost.shape
-    limit = 32 if code == _INTERLEAVE else 128
+    limit = 32 if code == _INTERLEAVE else 384 if variant == "shipping" else 128
     if D > limit:
         raise NotImplementedError(f"aggregate_dual variant {variant} takes D <= {limit}, got {D}")
     _check(cost, "cost", torch.float32 if f32 else torch.int8, 3)
@@ -232,6 +241,49 @@ def aggregate_dual_variants(cost: torch.Tensor, variant: str, p1: float = 8.0,
             bs)
     _launches["aggregate_dual_variants"] += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# The shipping aggregate_dual's ablations (no TPU counterpart)
+# ---------------------------------------------------------------------------
+
+# form → the staged kernel's form code (csrc/aggregate.cu, kNoRecurrence ...)
+STAGED_FORMS = {"no_recurrence": 1, "stage_only": 2, "scan_only": 3}
+_STAGED_MAX_D = 384  # 12 values a lane
+
+
+def aggregate_staged_variants_plain(cost: torch.Tensor, form: str):
+    """``no_recurrence``: each direction stores L = c (int8, clamped at
+    127). ``stage_only`` and ``scan_only`` write no defined values: None."""
+    if form != "no_recurrence":
+        return None
+    vals = _store(cost.to(torch.float32), torch.int8)
+    return vals, vals.clone()
+
+
+def aggregate_staged_variants(cost: torch.Tensor, form: str, p1: float = 8.0, p2: float = 96.0,
+                              axis: int = 0):
+    """The shipping ``aggregate_dual`` kernel with one part taken out, to
+    say which part holds its time: ``form`` a key of :data:`STAGED_FORMS`
+    (no_recurrence: L = c; stage_only: the staging of the cost and the
+    flushing of the tile alone, no scan; scan_only: the scan alone, on
+    whatever the ring holds, nothing staged or flushed). (H, W, D) int8 cost, D ≤ 384, along ``axis``
+    → int8 (L_fwd, L_bwd), defined for no_recurrence only."""
+    if form not in STAGED_FORMS:
+        raise ValueError(f"unknown staged form {form!r}: {tuple(STAGED_FORMS)}")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if cost.device.type == "cpu":
+        return aggregate_staged_variants_plain(cost, form)
+    H, W, D = cost.shape
+    if D > _STAGED_MAX_D:
+        raise NotImplementedError(f"the staged ablations take D <= {_STAGED_MAX_D}, got {D}")
+    _check(cost, "cost", torch.int8, 3)
+    lf, lb = torch.empty((2, H, W, D), dtype=torch.int8, device=cost.device)
+    _launch("aggregate_staged_variants", cost.device, cost.data_ptr(), lf.data_ptr(),
+            lb.data_ptr(), H, W, D, axis, float(p1), float(p2), STAGED_FORMS[form])
+    _launches["aggregate_staged_variants"] += 1
+    return lf, lb
 
 
 # ---------------------------------------------------------------------------
@@ -349,12 +401,16 @@ def right_disparity_variants(s: torch.Tensor, variant: str,
     return out
 
 
-KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, wta_stats_variants, right_disparity_variants)
+KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, aggregate_staged_variants,
+                   wta_stats_variants, right_disparity_variants)
 COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS)
 sgm_cuda.register({
     "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L, _I, _I, _I, _P)),
     "aggregate_variants": ("svt_aggregate_dual_variant",
                            (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P)),
+    "aggregate_staged_variants": ("svt_aggregate_staged_variant",
+                                  (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+                                  "aggregate_variants"),
     "wta_stats_variants": ("svt_wta_stats_variant", (_P,) * 7 + (_I,) * 5 + (_P,)),
     "right_disparity_variants": ("svt_right_disparity_variant", (_P, _P) + (_I,) * 6 + (_P,)),
 }, COUNTS)

@@ -67,6 +67,28 @@ _SIGNATURES = {
 }
 _fns: dict = {}
 _launches: dict[str, int] = {}
+# (current device index, raw handle of a device's current stream), read
+# through PyTorch's C bindings where it has them (as Triton's launcher
+# does): no torch.cuda.Stream object is built for a launch
+_current: list = []
+
+
+def _entry(kernel: str):
+    fn = _fns.get(kernel)
+    if fn is None:
+        # (symbol, argument types[, library]): the library is the kernel's
+        # own name unless the entry names another
+        symbol, argtypes, *library = _SIGNATURES[kernel]
+        fn = getattr(_build.load(library[0] if library else kernel), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[kernel] = fn
+        if not _current:
+            _current[:] = [
+                getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device),
+                getattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: torch.cuda.current_stream(index).cuda_stream)]
+    return fn
 
 
 def _launch(kernel: str, device: torch.device, *args) -> None:
@@ -75,24 +97,21 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     thread's current device; a mesh may hold several cards, and only then
     is the current device switched); raise on the error code it returns
     (``cudaGetLastError`` after the launch)."""
-    fn = _fns.get(kernel)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[kernel]
-        fn = getattr(_build.load(kernel), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _fns[kernel] = fn
-    stream = torch.cuda.current_stream(device).cuda_stream
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, stream)
+    fn = _entry(kernel)
+    index = device.index
+    current_device, raw_stream = _current
+    if index == current_device():
+        err = fn(*args, raw_stream(index))
     else:
         with torch.cuda.device(device):
-            err = fn(*args, stream)
+            err = fn(*args, raw_stream(index))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: cudaError {err}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.is_cuda and t.dtype == dtype and t.dim() == ndim and t.is_contiguous():
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -101,6 +120,13 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _stat_maps(H: int, W: int, device) -> tuple:
+    """(best, idx, cm, cp, competitor): four float32 (H, W) maps and an
+    int32 one, views of one allocation (one allocator call a launch)."""
+    maps = torch.empty((5, H, W), dtype=torch.float32, device=device)
+    return maps[0], maps[1].view(torch.int32), maps[2], maps[3], maps[4]
 
 
 def _check_planes(name: str, D: int) -> None:
@@ -281,11 +307,7 @@ def aggregate_dir(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
         _check(acc, "acc", torch.float32, 3)
     H, W, D = cost.shape
     out = torch.empty_like(cost) if acc is None else acc
-    stats = ()
-    if wta_out:
-        stats = tuple(torch.empty((H, W), dtype=dt, device=cost.device)
-                      for dt in (torch.float32, torch.int32, torch.float32, torch.float32,
-                                 torch.float32))
+    stats = _stat_maps(H, W, cost.device) if wta_out else ()
     ptrs = [t.data_ptr() for t in stats] or [None] * 5
     _launch("aggregate_dir", cost.device, cost.data_ptr(), out.data_ptr(), H, W, D, axis,
             int(reverse), float(p1), float(p2), int(acc is not None), *ptrs)
@@ -363,16 +385,14 @@ def aggregate_dual(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
     _check_planes("aggregate_dual", cost.shape[-1])
     _check(cost, "cost", torch.int8, 3)
     H, W, D = cost.shape
-    lf = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
-    lb = torch.empty_like(lf)
+    lf, lb = torch.empty((2, H, W, D), dtype=out_dtype, device=cost.device)
     cost_b = cost if cost_b is None else cost_b
     ptrs = [None] * 4  # seed_f, seed_b, final_f, final_b
     if chain:
         _check(cost_b, "cost_b", torch.int8, 3)
         for b, name in zip(boundary, ("bf", "bb")):
             _check(b, name, torch.float32, 2)
-        ff = torch.empty((W, D), dtype=torch.float32, device=cost.device)
-        fb = torch.empty_like(ff)
+        ff, fb = torch.empty((2, W, D), dtype=torch.float32, device=cost.device)
         ptrs = [boundary[0].data_ptr(), boundary[1].data_ptr(), ff.data_ptr(), fb.data_ptr()]
     _launch("aggregate", cost.device, cost.data_ptr(), cost_b.data_ptr(), ptrs[0], ptrs[1],
             lf.data_ptr(), lb.data_ptr(), ptrs[2], ptrs[3], H, W, D, axis, float(p1),
@@ -477,9 +497,7 @@ def wta_stats_from_duals(hf: torch.Tensor, hb: torch.Tensor, d_valid: int | None
     if hf.shape != hb.shape:
         raise ValueError(f"volume shapes differ: {tuple(hf.shape)} vs {tuple(hb.shape)}")
     H, W, _ = hf.shape
-    best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=hf.device)
-                          for _ in range(4))
-    idx = torch.empty((H, W), dtype=torch.int32, device=hf.device)
+    best, idx, cm, cp, comp = _stat_maps(H, W, hf.device)
     _launch("wta_stats", hf.device, hf.data_ptr(), hb.data_ptr(), best.data_ptr(),
             idx.data_ptr(), cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D, d_valid,
             hf.element_size())
@@ -689,9 +707,7 @@ def wta(agg: torch.Tensor):
     _check_planes("wta", agg.shape[-1])
     _check(agg, "agg", torch.float32, 3)
     H, W, D = agg.shape
-    best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=agg.device)
-                          for _ in range(4))
-    idx = torch.empty((H, W), dtype=torch.int32, device=agg.device)
+    best, idx, cm, cp, comp = _stat_maps(H, W, agg.device)
     _launch("wta", agg.device, agg.data_ptr(), best.data_ptr(), idx.data_ptr(),
             cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D)
     _launches["wta"] += 1

@@ -6,7 +6,10 @@ of ``scripts/bench_agg_step.py``.
 Replaces the TPU kernel of ``scripts/bench_agg_step.py:216`` (``build``,
 :38-227), which times variants of the dual-aggregation kernel that each
 delete one ingredient. Here each variant is a compile-time variant of the
-shipping kernel (``ops/csrc/aggregate.cu``, :func:`bench_cuda.aggregate_dual_variants`).
+earlier design of ``aggregate_dual``'s kernel (``ops/csrc/aggregate.cu``,
+:func:`bench_cuda.aggregate_dual_variants`: a warp a line and direction,
+the next step's cost loaded from device memory one step ahead), which
+stays compiled for them; the shipping kernel is now the staged one.
 
 The script's input is the production refine's dual sweep: a (W=1280 scan
 steps, X=184, D=128) int8 volume holding 4 lane-packed groups of 32
@@ -14,8 +17,9 @@ disparities, P1=8, P2=96. The port's strips are row ranges, so its view of
 that volume is (1280, 736, 32): 736 lines of 32 planes, with no copy. The
 script's ``g1_raw`` (one group of 128) and ``no_groupmin`` (whose d±1 terms
 cross the group edges, and whose carry never takes a min, so the groups do
-not matter to it) read (1280, 184, 128). ``shipping`` is the shipping
-kernel (the function of the script's ``full_raw``); ``full_norm`` stores
+not matter to it) read (1280, 184, 128). ``shipping`` is that design's
+shipping kernel (the function of the script's ``full_raw``; the name is the
+script's); ``full_norm`` stores
 the normalised carry as the script's does. ``bs1``…``bs16`` are warps per
 block (the script's rows per block have no counterpart: a warp walks its
 whole line). What each variant isolates is in :mod:`..ops.bench_cuda`.

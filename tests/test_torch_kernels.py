@@ -352,6 +352,20 @@ def test_variant_libraries_build_from_the_shipping_sources():
         assert _build.library_path(name) != _build.library_path(src)
 
 
+def test_staged_ablations_plain_and_arguments():
+    """The staged kernel's ablations: no_recurrence stores the cost (int8,
+    clamped at 127) in both directions; the other forms define no values;
+    an unknown form or axis raises on any device."""
+    cost = torch.from_numpy(RNG.integers(-128, 128, size=(5, 6, 7)).astype(np.int8))
+    lf, lb = bench_cuda.aggregate_staged_variants(cost, "no_recurrence")
+    assert torch.equal(lf, cost) and torch.equal(lb, cost)
+    assert bench_cuda.aggregate_staged_variants(cost, "stage_only") is None
+    assert bench_cuda.aggregate_staged_variants(cost, "scan_only", axis=1) is None
+    for bad in (dict(form="no_such"), dict(form="scan_only", axis=2)):
+        with pytest.raises(ValueError):
+            bench_cuda.aggregate_staged_variants(cost, **bad)
+
+
 def _meta(shape, dtype):
     """A tensor that is neither on the CPU nor on a card: the wrappers'
     argument checks run, and nothing can launch."""
@@ -687,6 +701,143 @@ def test_aggregate_dir_wta_out_kernel(cuda, D, reverse, with_acc):
 
 
 # ---------------------------------------------------------------------------
+# aggregate_dual's staging ring and shift_gather's two paths, at the edges
+# of their chunks, vectors and alignment (on a card)
+# ---------------------------------------------------------------------------
+
+
+def _int8_cost(shape, device, crop: int = 0):
+    """Costs 0..60 (with P2 = 96 the int8 stores reach their clamp);
+    ``crop`` rows off each end give a contiguous view whose base is not
+    16-byte aligned when a row's bytes are not a multiple of 16, as
+    ``cost[crop:-crop]`` in ``stereo.sgm`` does."""
+    h, w, d = shape
+    full = torch.from_numpy(RNG.integers(0, 61, size=(h + 2 * crop, w, d)).astype(np.int8))
+    full = full.to(device)
+    return full[crop:h + crop] if crop else full
+
+
+def _dual_equal(cost, dtype, axis, **kw):
+    before = sgm_cuda.launch_counts()
+    got = sgm_cuda.aggregate_dual(cost, 8.0, 96.0, axis=axis, out_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    name = "aggregate_dual_chain" if kw else "aggregate_dual"
+    assert sgm_cuda.launch_counts()[name] == before[name] + 1
+    want = sgm_cuda.aggregate_dual_plain(cost, 8.0, 96.0, axis=axis, out_dtype=dtype, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+# (axis, (H, W, D), rows cropped off each end): lines of many chunks (2 to
+# 32 steps a chunk) with a ragged last chunk and a ragged last block of
+# lines (9 rows, 13 columns); one step, and fewer steps than a chunk (32 at
+# D=32, 14 at D=107); a cost[1:-1] view with odd D, whose base and line
+# starts are off 16 bytes (int16 rows of odd D too)
+_CHUNK_EDGES = ([(axis, (*shape, D), 0) for D in (1, 32, 33, 107, 320, 1024)
+                 for axis, shape in ((1, (9, 517)), (0, (301, 13)))]
+                + [(0, (S, 11, D), 0) for S in (1, 5) for D in (32, 107)]
+                + [(1, (6, S, D), 0) for S in (1, 5) for D in (32, 107)]
+                + [(axis, (37, 45, D), 1) for axis in (0, 1) for D in (33, 107)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,shape,crop", _CHUNK_EDGES)
+def test_aggregate_dual_kernel_chunk_edges(cuda, axis, shape, crop):
+    cost = _int8_cost(shape, cuda, crop)
+    assert cost.is_contiguous() and (crop == 0 or cost.data_ptr() % 16 != 0)
+    for dtype in (torch.int8, torch.int16):
+        _dual_equal(cost, dtype, axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 107, 320])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_aggregate_dual_chain_kernel_many_chunks(cuda, dtype, D):
+    """Chain mode over lines of many chunks: nonzero seeds, ``cost_b``, the
+    final carries, and a cropped (unaligned) forward volume."""
+    cost = _int8_cost((131, 13, D), cuda, crop=1)
+    cost_b = _int8_cost((131, 13, D), cuda)
+    bf, bb = _seeds((13, D), cuda), _seeds((13, D), cuda)
+    _dual_equal(cost, dtype, 0, boundary=(bf, bb), return_final=True, cost_b=cost_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3, 107, 320])
+@pytest.mark.parametrize("p1,p2", [(8.0, 96.0), (7.5, 96.25), (-3.0, 96.0)])
+def test_aggregate_dual_kernel_any_values(cuda, p1, p2, D):
+    """Costs over all of int8 and seeds below 0 (the kernel's exact-integer
+    mode takes the bits of positive floats, so a seeded first step takes
+    keys), and penalties that are not non-negative integers (the general
+    mode: no shift, keyed min, converting stores)."""
+    cost = torch.from_numpy(RNG.integers(-128, 128, size=(41, 37, D)).astype(np.int8)).to(cuda)
+    seeds = tuple(_seeds((37, D), cuda) - 40.0 for _ in range(2))
+    for axis, dtype, kw in ((1, torch.int8, {}), (0, torch.int16, {}),
+                            (0, torch.int8, dict(boundary=seeds, return_final=True))):
+        got = sgm_cuda.aggregate_dual(cost, p1, p2, axis=axis, out_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        want = sgm_cuda.aggregate_dual_plain(cost, p1, p2, axis=axis, out_dtype=dtype, **kw)
+        assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 107, 320])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_aggregate_staged_ablations_kernel(cuda, axis, D):
+    """no_recurrence is exact against its plain version; the other two
+    forms launch (counted) and define no values; past 384 disparities the
+    ablations refuse before any launch."""
+    cost = torch.from_numpy(RNG.integers(0, 61, size=(37, 45, D)).astype(np.int8)).to(cuda)
+    before = sgm_cuda.launch_counts()["aggregate_staged_variants"]
+    for form in bench_cuda.STAGED_FORMS:
+        got = bench_cuda.aggregate_staged_variants(cost, form, axis=axis)
+        torch.cuda.synchronize()
+        want = bench_cuda.aggregate_staged_variants_plain(cost, form)
+        if want is not None:
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sgm_cuda.launch_counts()["aggregate_staged_variants"] == before + 3
+    with pytest.raises(NotImplementedError, match="384"):
+        bench_cuda.aggregate_staged_variants(torch.zeros((2, 3, 385), dtype=torch.int8,
+                                                         device=cuda), "scan_only")
+
+
+def _edge_offsets(h, w, max_offset):
+    """Offsets at every edge of the range, row by row: off = x (the first
+    column), max_offset − 1, negative, ≥ max_offset, then random ones."""
+    off = RNG.integers(-6, max_offset + 25, size=(h, w)).astype(np.int32)
+    x = np.arange(w)
+    off[0], off[1] = x, max_offset - 1
+    off[2], off[3] = -1 - x % 3, max_offset + x % 3
+    return off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("W", [148, 150])
+def test_shift_gather_kernel_paths(cuda, W, B, dtype, aligned):
+    """W % 4 = 0 takes the 16-byte path where the offsets are aligned (the
+    row path otherwise), W = 150 the row path; an unaligned source and
+    unaligned offsets come from views one element into a buffer."""
+    H, mx = 9, 40
+    shape = (B, H, W) if B > 1 else (H, W)
+    n = B * H * W
+    skip = 0 if aligned else 1
+    src_buf = torch.from_numpy(RNG.uniform(-300, 300, size=n + 1)).to(dtype).to(cuda)
+    src = src_buf[skip:skip + n].view(shape)
+    off_buf = np.zeros(H * W + 1, dtype=np.int32)
+    off_buf[skip:skip + H * W] = _edge_offsets(H, W, mx).ravel()
+    off = torch.from_numpy(off_buf).to(cuda)[skip:skip + H * W].view(H, W)
+    assert (src.data_ptr() % 16 == 0) == aligned and (off.data_ptr() % 16 == 0) == aligned
+    before = sgm_cuda.launch_counts()["shift_gather"]
+    got = sgm_cuda.shift_gather(src, off, mx)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["shift_gather"] == before + 1
+    assert got.dtype == dtype and torch.equal(got, sgm_cuda.shift_gather_plain(src, off, mx))
+
+
+# ---------------------------------------------------------------------------
 # The measurement kernels of bench_cuda against their plain versions, at
 # ragged shapes: D not a multiple of 32, lines and pixels not a multiple of
 # the warps per block (on a card)
@@ -709,6 +860,23 @@ def test_aggregate_dual_variant_kernel(cuda, variant, D):
     want = bench_cuda.aggregate_dual_variants_plain(cost, variant, 8.0, 96.0, bs=4)
     assert len(got) == len(want)
     assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [200, 320])
+def test_aggregate_dual_earlier_design_past_128(cuda, D):
+    """The earlier design's shipping kernel (the ``shipping`` variant) takes
+    D ≤ 384, to be timed beside the staged kernel at the full search's D;
+    the other variants stay at 128."""
+    cost = torch.from_numpy(RNG.integers(0, 61, size=(23, 37, D)).astype(np.int8)).to(cuda)
+    got = bench_cuda.aggregate_dual_variants(cost, "shipping", 8.0, 96.0)
+    torch.cuda.synchronize()
+    want = bench_cuda.aggregate_dual_variants_plain(cost, "shipping", 8.0, 96.0)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, sgm_cuda.aggregate_dual(
+        cost, 8.0, 96.0, axis=0, out_dtype=torch.int8)))
+    with pytest.raises(NotImplementedError):
+        bench_cuda.aggregate_dual_variants(cost, "copy")
 
 
 @pytest.mark.cuda
