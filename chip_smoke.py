@@ -55,8 +55,9 @@ of which raises (exit code non-zero, no result line) on failure:
    and ``wta``, each beside its bound (events, and the device alone), the
    host time of one launch with and without a device switch, through the
    wrapper, as the wrapper's launch path was before it read the raw stream
-   handle, and of one ``torch.gather`` (:func:`launch_host_us`), and of one
-   call of each kernel's wrapper (:func:`wrapper_host_us`);
+   handle, and of one ``torch.gather`` (:func:`launch_host_us`), of one
+   call of each kernel's wrapper (:func:`wrapper_host_us`), and where one
+   ``wta_stats_from_duals`` call's host time goes (:func:`wta_stats_host_us`);
 10. the measurement scripts at their full shapes (``bench_agg_step``,
    ``bench_wta_variants``, ``bench_rdisp`` at D=128 and 320,
    ``bench_sumwta`` at D=128, 384 and 320), each run with the launch
@@ -71,7 +72,15 @@ of which raises (exit code non-zero, no result line) on failure:
    ablations (``bench_cuda.aggregate_staged_variants``: no recurrence, the
    staging and flushing alone, the scan alone), device alone; then ``aggregate_dir``'s
    ``wta_out`` at 720x1280x320 against its plain version, timed beside the
-   plain ``aggregate_dir`` launch.
+   plain ``aggregate_dir`` launch; then (:func:`redesign_phase`) the
+   redesigned ``wta_stats_from_duals`` and ``speckle_counts`` against their
+   earlier designs (``bench_wta_variants``' ``base`` variant and
+   ``bench_cuda.speckle_counts_direct``) on the production frame's recorded
+   launches (the refine stack (960, 1280, 32) and the coarse search
+   (240, 426, 107); 720x1280 at k=15, nbins=13 and 240x426 at k=15,
+   nbins=6): equal outputs, timed in turns (earlier, new, new, earlier),
+   and one ``nearest_valid_lohi`` launch on a line past 8192 on each axis,
+   exact against its plain version.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
@@ -138,9 +147,19 @@ SLICE4_KERNELS = {
 # each kernel's design, as the kernels line names it: "staged ring" and "row
 # grid" are the redesigns of aggregate_dual (a shared-memory ring filled by
 # cp.async, a redux min) and shift_gather (a row a grid row, 16-byte
-# vectors); every other kernel keeps the design it was first ported with
+# vectors), "staged pixels" and "column counts" those of
+# wta_stats_from_duals (a block's pixels staged by cp.async, G lanes a
+# pixel) and speckle_counts (running per-column bin counts, O(k) a pixel),
+# and "lo as scratch, column tiles" nearest_valid_lohi's fix (the left
+# values parked in lo: lines of any length; axis 0 a tile of 32 columns a
+# block, coalesced); every other kernel keeps the design it was first
+# ported with
 DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring",
-           "shift_gather": "row grid"}
+           "shift_gather": "row grid", "wta_stats_from_duals": "staged pixels",
+           "speckle_counts": "column counts",
+           "nearest_valid_lohi": "lo as scratch, column tiles"}
+# lines past the 8192 that nearest_valid_lohi once refused: shape, axis
+LONG_LINES = (((4, 10000), 1), ((9000, 6), 0))
 FIRST_DESIGN = "first port"
 # the shapes at which phase 10 takes the shipping aggregate_dual apart:
 # label, (H, W, D), axis
@@ -480,6 +499,58 @@ def wrapper_host_us(torch, sgm_cuda, n: int = 1000):
     return host_us(torch, forms, n)
 
 
+def wta_stats_host_us(torch, sgm_cuda, n: int = 1000):
+    """Where the host time of one ``wta_stats_from_duals`` call on an
+    (8, 32, 2) volume goes: the wrapper, the wrapper as it was before
+    (``earlier``: five index views and a dtype view of the maps, a
+    ``data_ptr`` call each), and its parts: the checks, the maps'
+    allocation, the views either way, and the launch alone (the C entry on
+    the current stream). Host µs a call, each form timed twice."""
+    vol = torch.zeros((8, 32, 2), dtype=torch.int8, device="cuda")
+    maps = torch.empty((5, 8, 32), device="cuda")
+    sgm_cuda.wta_stats_from_duals(vol, vol)  # loads the kernel's library
+    fn = sgm_cuda._fns["wta_stats"]
+    p, step = maps.data_ptr(), 4 * 8 * 32
+    args = (vol.data_ptr(), vol.data_ptr(), p, p + step, p + 2 * step, p + 3 * step,
+            p + 4 * step, 8 * 32, 2, 2, 1)
+
+    def earlier():
+        D = vol.shape[-1]
+        if vol.device.type == "cpu":
+            raise ValueError("cpu")
+        sgm_cuda._check_planes("wta_stats_from_duals", D)
+        if vol.dtype not in (torch.int8, torch.int16):
+            raise TypeError("dtype")
+        sgm_cuda._check(vol, "hf", vol.dtype, 3)
+        sgm_cuda._check(vol, "hb", vol.dtype, 3)
+        if vol.shape != vol.shape:
+            raise ValueError("shapes")
+        H, W, _ = vol.shape
+        m = torch.empty((5, H, W), dtype=torch.float32, device=vol.device)
+        best, idx, cm, cp, comp = m[0], m[1].view(torch.int32), m[2], m[3], m[4]
+        sgm_cuda._launch("wta_stats", vol.device, vol.data_ptr(), vol.data_ptr(), best.data_ptr(),
+                         idx.data_ptr(), cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D,
+                         D, vol.element_size())
+        return best, idx, cm, cp, comp
+
+    def checks():
+        sgm_cuda._check_planes("wta_stats_from_duals", 2)
+        sgm_cuda._check(vol, "hf", vol.dtype, 3)
+        sgm_cuda._check(vol, "hb", vol.dtype, 3)
+        return vol.shape != vol.shape
+
+    forms = {
+        "wrapper": lambda: sgm_cuda.wta_stats_from_duals(vol, vol),
+        "earlier": earlier,
+        "checks": checks,
+        "empty": lambda: torch.empty((5, 8, 32), dtype=torch.float32, device=vol.device),
+        "index_views": lambda: (maps[0], maps[1].view(torch.int32), maps[2], maps[3], maps[4]),
+        "unbind_views": lambda: maps.unbind(0)[1].view(torch.int32),
+        "launch": lambda: fn(*args, torch.cuda.current_stream().cuda_stream),
+    }
+    return host_us(torch, forms, n)
+
+
 def parallel_phases(torch, card: str):
     """Phases 6-9; returns the kernels-line rows of the three kernels and
     the host µs of a launch (:func:`launch_host_us`, :func:`wrapper_host_us`)."""
@@ -660,7 +731,10 @@ def parallel_phases(torch, card: str):
     per_kernel = wrapper_host_us(torch, sgm_cuda)
     print("wrapper host time a launch (8x32 inputs): "
           + ", ".join(f"{k} {v:.2f} µs" for k, v in per_kernel.items()) + f", card {card}")
-    return rows, {"shift_gather": us, "wrappers": per_kernel}
+    wta_us = wta_stats_host_us(torch, sgm_cuda)
+    print("wta_stats_from_duals host time, taken apart (8x32x2 int8): "
+          + ", ".join(f"{k} {v:.2f} µs" for k, v in wta_us.items()) + f", card {card}")
+    return rows, {"shift_gather": us, "wrappers": per_kernel, "wta_stats_from_duals": wta_us}
 
 
 def script_phases(torch, card: str):
@@ -777,6 +851,66 @@ def script_phases(torch, card: str):
     print(f"aggregate_dir axis 0 reverse acc at {H}x{W}x{D}: wta_out exact against its plain "
           f"version; {with_ms:.4f} ms with wta_out, {without_ms:.4f} ms without, card {card}")
     return rows
+
+
+def redesign_phase(torch, card: str, calls):
+    """The end of phase 10: each redesigned kernel against its earlier design
+    on the production frame's recorded launches (wrapper name → [(args,
+    kwargs)]): both exact against the plain version, then timed in turns
+    (earlier, new, new, earlier; events and the device alone); and
+    ``nearest_valid_lohi`` on lines past 8192 (``LONG_LINES``), exact.
+    Returns {wrapper name: {shape: the turns' (ms, device_ms) by design,
+    and the bound}}."""
+    from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
+
+    earlier = {
+        "wta_stats_from_duals": lambda hf, hb, d_valid=None: bench_cuda.wta_stats_variants(
+            hf, hb, "base", d_valid),
+        "speckle_counts": bench_cuda.speckle_counts_direct,
+    }
+    table = {}
+    for kname, kcalls in calls.items():
+        forms = {"earlier": earlier[kname], "new": getattr(sgm_cuda, kname)}
+        table[kname] = {}
+        for a, kw in kcalls:
+            label = str(tuple(a[0].shape)) + ("" if kname == "wta_stats_from_duals"
+                                              else f" k={a[1]} nbins={a[3]}")
+            want = plain_of(sgm_cuda, kname)(*a, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            for name, fn in forms.items():
+                got = fn(*a, **kw)
+                got = got if isinstance(got, tuple) else (got,)
+                check(len(got) == len(want) and all(
+                    g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{kname} ({name} design) differs from its plain version at {label}")
+            del got, want
+            turns = {"earlier": [], "new": []}
+            for name in ("earlier", "new", "new", "earlier"):
+                def call(fn=forms[name]):
+                    return fn(*a, **kw)
+                turns[name].append((cuda_ms(torch, call, 20, warmup=3),
+                                    device_ms(call, f"{kname} {name} at {label}")))
+            b_ms, b_by = bound_ms(*work(kname, a, kw))
+            print(f"redesigned {kname} at {label}, in turns (earlier, new, new, earlier), "
+                  "equal outputs: " + "; ".join(
+                      f"{name} " + ", ".join(f"{ms:.4f} ms (device alone {fmt(dev)})"
+                                             for ms, dev in v) for name, v in turns.items())
+                  + f"; bound {b_ms:.4f} ms ({b_by}), card {card}")
+            table[kname][label] = {**turns, "bound_ms": b_ms, "bound_by": b_by}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for shape, axis in LONG_LINES:
+        d = torch.rand(shape, generator=gen, device="cuda") * 64
+        v = torch.rand(shape, generator=gen, device="cuda") < 0.002
+        v[1] = False
+        v[:, 2] = False
+        up = torch.rand(shape, generator=gen, device="cuda") * 64
+        got = sgm_cuda.nearest_valid_lohi(d, v, up, axis)
+        want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"nearest_valid_lohi differs from its plain version on {shape} along axis {axis}")
+        print(f"nearest_valid_lohi on {shape} along axis {axis} (lines of {shape[axis]}): exact "
+              f"against its plain version, card {card}")
+    return table
 
 
 def main() -> int:
@@ -943,8 +1077,9 @@ def main() -> int:
             if not calls or (path == "full_lr_on" and recorded["full_lr_off"][kname]):
                 continue  # the LR-on search repeats the LR-off one's other launches
             groups = {}
-            for a, kw in calls:  # one line per distinct shape, then the frame's total
-                groups.setdefault(tuple(tuple(x.shape) for x in a if torch.is_tensor(x)),
+            for a, kw in calls:  # one line per distinct shape (and axis), then the frame's total
+                groups.setdefault(tuple(tuple(x.shape) for x in a if torch.is_tensor(x))
+                                  + tuple(f"{k}={v}" for k, v in kw.items() if k == "axis"),
                                   []).append((a, kw))
             if len(groups) > 1:
                 for shapes, g in groups.items():
@@ -998,17 +1133,23 @@ def main() -> int:
                            "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
     next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
+    redesigned = {k: prod[k] for k in ("wta_stats_from_duals", "speckle_counts")}
     del recorded, prod
     torch.cuda.empty_cache()
     chain_rows, host = parallel_phases(torch, card)
     rows += chain_rows
     torch.cuda.empty_cache()
     rows += script_phases(torch, card)
+    for kname, ab in redesign_phase(torch, card, redesigned).items():
+        next(r for r in rows if r["name"] == kname)["earlier_design_ab"] = ab
+    del redesigned
     check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS) + len(SLICE4_KERNELS),
           "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input
         r["host_us"] = host["wrappers"].get(r["name"])
     next(r for r in rows if r["name"] == "shift_gather")["host_us_forms"] = host["shift_gather"]
+    next(r for r in rows if r["name"] == "wta_stats_from_duals")["host_us_forms"] = host[
+        "wta_stats_from_duals"]
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -12,16 +12,23 @@ package's four TPU measurement scripts, each beside its plain version.
   with its recurrence, its scan or its staging and flushing taken out (no
   TPU counterpart: they say which part of that design holds its time).
 - :func:`wta_stats_variants` ← ``scripts/bench_wta_variants.py:149``:
-  ablations of ``wta_stats_from_duals`` (``csrc/wta_stats.cu``).
+  ablations of ``wta_stats_from_duals`` (``csrc/wta_stats.cu``), on the
+  earlier design of that kernel (a warp a pixel), the one the script's
+  variants were written against; ``base`` is that design as it shipped.
+- :func:`speckle_counts_direct`: ``speckle_counts``' earlier design (the
+  direct k×k form of ``csrc/speckle.cu``) at any k and nbins, timed beside
+  the shipping column counts (no TPU counterpart).
 - :func:`right_disparity_variants` ← ``scripts/bench_rdisp.py:84``:
   ``right_disparity`` read in place, from a (D, H, W) copy, and through a
   band staged in shared memory (``csrc/right_disparity.cu``).
 
 The three variant families are compile-time variants of the shipping
 kernels, built into libraries of their own (``_build.VARIANTS``); the
-variant named ``shipping``, ``base`` or ``in_place`` is the shipping kernel
-itself. No engine path launches any of these: they are what the scripts of
-``stereovision_tpu_torch.scripts`` time. As in :mod:`.sgm_cuda`, a wrapper
+variant named ``in_place`` is the shipping kernel itself, ``shipping`` and
+``base`` the earlier designs of ``aggregate_dual`` and
+``wta_stats_from_duals``. No engine path launches any of these: they are
+what the scripts of ``stereovision_tpu_torch.scripts`` and ``chip_smoke.py``
+time. As in :mod:`.sgm_cuda`, a wrapper
 sends a CPU tensor to its plain version and launches its kernel on a CUDA
 tensor (no fallback), and adds one to its count in
 ``sgm_cuda.launch_counts()`` at each launch.
@@ -293,7 +300,7 @@ def aggregate_staged_variants(cost: torch.Tensor, form: str, p1: float = 8.0, p2
 _BASE, _F32SUM, _BESTONLY, _NOKEY, _SUMONLY = range(5)
 # variant → (kernel form, warps per block)
 WTA_VARIANTS = {
-    "base": (_BASE, 8),  # the shipping kernel
+    "base": (_BASE, 8),  # the earlier design as it shipped
     "f32sum": (_F32SUM, 8),
     "bestonly": (_BESTONLY, 8),
     "nokey": (_NOKEY, 8),
@@ -401,8 +408,29 @@ def right_disparity_variants(s: torch.Tensor, variant: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# speckle_counts, the earlier design
+# ---------------------------------------------------------------------------
+
+
+def speckle_counts_direct(dv: torch.Tensor, k: int, r: float, nbins: int) -> torch.Tensor:
+    """``sgm_cuda.speckle_counts`` through its direct k×k form at any k and
+    nbins (the design it shipped with until the column counts; the
+    shipping wrapper takes it only where those do not fit). The same
+    function: its plain version is ``sgm_cuda.speckle_counts_plain``."""
+    if dv.device.type == "cpu":
+        return sgm_cuda.speckle_counts_plain(dv, k, r, nbins)
+    _check(dv, "dv", torch.float32, 2)
+    H, W = dv.shape
+    out = torch.empty_like(dv)
+    _launch("speckle_direct", dv.device, dv.data_ptr(), out.data_ptr(), H, W, k, float(r),
+            nbins)
+    _launches["speckle_counts_direct"] += 1
+    return out
+
+
 KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, aggregate_staged_variants,
-                   wta_stats_variants, right_disparity_variants)
+                   wta_stats_variants, right_disparity_variants, speckle_counts_direct)
 COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS)
 sgm_cuda.register({
     "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L, _I, _I, _I, _P)),
@@ -413,4 +441,6 @@ sgm_cuda.register({
                                   "aggregate_variants"),
     "wta_stats_variants": ("svt_wta_stats_variant", (_P,) * 7 + (_I,) * 5 + (_P,)),
     "right_disparity_variants": ("svt_right_disparity_variant", (_P, _P) + (_I,) * 6 + (_P,)),
+    "speckle_direct": ("svt_speckle_counts_direct", (_P, _P, _I, _I, _I, _F, _I, _P),
+                       "speckle"),
 }, COUNTS)

@@ -59,6 +59,7 @@ _SIGNATURES = {
     "aggregate": ("svt_aggregate_dual",
                   (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P)),
     "speckle": ("svt_speckle_counts", (_P, _P, _I, _I, _I, _F, _I, _P)),
+    "speckle_columns": ("svt_speckle_columns", (_I, _I), "speckle"),
     "wta_stats": ("svt_wta_stats_from_duals", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "right_disparity": ("svt_right_disparity", (_P, _P, _I, _I, _I, _I, _I, _P)),
     "shift_gather": ("svt_shift_gather", (_P, _P, _P, _I, _I, _I, _I, _P)),
@@ -123,10 +124,15 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 
 def _stat_maps(H: int, W: int, device) -> tuple:
-    """(best, idx, cm, cp, competitor): four float32 (H, W) maps and an
-    int32 one, views of one allocation (one allocator call a launch)."""
+    """((best, idx, cm, cp, competitor), their five data pointers): four
+    float32 (H, W) maps and an int32 one, views of one allocation, made by
+    one allocator call and one ``unbind`` (the pointers are the
+    allocation's, stepped)."""
     maps = torch.empty((5, H, W), dtype=torch.float32, device=device)
-    return maps[0], maps[1].view(torch.int32), maps[2], maps[3], maps[4]
+    best, idx, cm, cp, comp = maps.unbind(0)
+    p, step = maps.data_ptr(), 4 * H * W
+    return ((best, idx.view(torch.int32), cm, cp, comp),
+            (p, p + step, p + 2 * step, p + 3 * step, p + 4 * step))
 
 
 def _check_planes(name: str, D: int) -> None:
@@ -307,8 +313,7 @@ def aggregate_dir(cost: torch.Tensor, p1: float, p2: float, axis: int = 0,
         _check(acc, "acc", torch.float32, 3)
     H, W, D = cost.shape
     out = torch.empty_like(cost) if acc is None else acc
-    stats = _stat_maps(H, W, cost.device) if wta_out else ()
-    ptrs = [t.data_ptr() for t in stats] or [None] * 5
+    stats, ptrs = _stat_maps(H, W, cost.device) if wta_out else ((), (None,) * 5)
     _launch("aggregate_dir", cost.device, cost.data_ptr(), out.data_ptr(), H, W, D, axis,
             int(reverse), float(p1), float(p2), int(acc is not None), *ptrs)
     _launches["aggregate_dir"] += 1
@@ -487,22 +492,23 @@ def wta_stats_from_duals(hf: torch.Tensor, hb: torch.Tensor, d_valid: int | None
     d_valid = D if d_valid is None else d_valid
     if not 0 < d_valid <= D:
         raise ValueError(f"d_valid must be in (0, {D}], got {d_valid}")
-    if hf.device.type == "cpu":
+    dev = hf.device
+    if dev.type == "cpu":
         return wta_stats_from_duals_plain(hf, hb, d_valid)
     _check_planes("wta_stats_from_duals", D)
-    if hf.dtype not in (torch.int8, torch.int16):
-        raise TypeError(f"hf must be int8 or int16, got {hf.dtype}")
-    _check(hf, "hf", hf.dtype, 3)
-    _check(hb, "hb", hf.dtype, 3)
-    if hf.shape != hb.shape:
-        raise ValueError(f"volume shapes differ: {tuple(hf.shape)} vs {tuple(hb.shape)}")
-    H, W, _ = hf.shape
-    best, idx, cm, cp, comp = _stat_maps(H, W, hf.device)
-    _launch("wta_stats", hf.device, hf.data_ptr(), hb.data_ptr(), best.data_ptr(),
-            idx.data_ptr(), cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D, d_valid,
-            hf.element_size())
+    dtype = hf.dtype
+    if dtype not in (torch.int8, torch.int16):
+        raise TypeError(f"hf must be int8 or int16, got {dtype}")
+    _check(hf, "hf", dtype, 3)
+    _check(hb, "hb", dtype, 3)
+    shape = hf.shape
+    if shape != hb.shape:
+        raise ValueError(f"volume shapes differ: {tuple(shape)} vs {tuple(hb.shape)}")
+    stats, ptrs = _stat_maps(shape[0], shape[1], dev)
+    _launch("wta_stats", dev, hf.data_ptr(), hb.data_ptr(), *ptrs, shape[0] * shape[1], D,
+            d_valid, hf.element_size())
     _launches["wta_stats_from_duals"] += 1
-    return best, idx, cm, cp, comp
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -607,10 +613,19 @@ def speckle_counts_plain(dv: torch.Tensor, k: int, r: float, nbins: int) -> torc
     return count
 
 
+def speckle_design(k: int, nbins: int) -> str:
+    """The form :func:`speckle_counts` launches on a card for ``k`` and
+    ``nbins``, as its C entry picks it up front: ``"columns"`` (running
+    column counts) or ``"direct"`` (the k×k form, where k > 31 or
+    nbins > 16). Loads the kernel's library."""
+    return "columns" if _entry("speckle_columns")(k, nbins) else "direct"
+
+
 def speckle_counts(dv: torch.Tensor, k: int, r: float, nbins: int) -> torch.Tensor:
     """(H, W) float32 field (invalid pixels at −2r) → (H, W) float32 count of
     same-bin pixels in the k×k replicate-padded window, maxed over the
-    binnings floor(dv/r) and floor(dv/r + 0.5)."""
+    binnings floor(dv/r) and floor(dv/r + 0.5) (see :func:`speckle_design`
+    for the kernel's two forms)."""
     if dv.device.type == "cpu":
         return speckle_counts_plain(dv, k, r, nbins)
     _check(dv, "dv", torch.float32, 2)
@@ -656,9 +671,6 @@ def nearest_valid_lohi_plain(disp: torch.Tensor, valid: torch.Tensor, d_up: torc
     return torch.minimum(lv, rv), torch.maximum(lv, rv)
 
 
-_LOHI_MAX_LINE = 8192
-
-
 def nearest_valid_lohi(disp: torch.Tensor, valid: torch.Tensor, d_up: torch.Tensor,
                        axis: int = 1):
     """(H, W) float32 disparity, bool validity and float32 fallback →
@@ -675,10 +687,6 @@ def nearest_valid_lohi(disp: torch.Tensor, valid: torch.Tensor, d_up: torch.Tens
     if not disp.shape == valid.shape == d_up.shape:
         raise ValueError("disp, valid and d_up must have one shape")
     H, W = disp.shape
-    if disp.shape[axis] > _LOHI_MAX_LINE:
-        raise NotImplementedError(
-            f"nearest_valid_lohi over lines longer than {_LOHI_MAX_LINE} is not ported "
-            "(ROADMAP.md kernel queue item 5)")
     lo, hi = torch.empty_like(disp), torch.empty_like(disp)
     _launch("nearest_lohi", disp.device, disp.data_ptr(), valid.data_ptr(), d_up.data_ptr(),
             lo.data_ptr(), hi.data_ptr(), H, W, axis)
@@ -707,11 +715,10 @@ def wta(agg: torch.Tensor):
     _check_planes("wta", agg.shape[-1])
     _check(agg, "agg", torch.float32, 3)
     H, W, D = agg.shape
-    best, idx, cm, cp, comp = _stat_maps(H, W, agg.device)
-    _launch("wta", agg.device, agg.data_ptr(), best.data_ptr(), idx.data_ptr(),
-            cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D)
+    stats, ptrs = _stat_maps(H, W, agg.device)
+    _launch("wta", agg.device, agg.data_ptr(), *ptrs, H * W, D)
     _launches["wta"] += 1
-    return best, idx, cm, cp, comp
+    return stats
 
 
 KERNEL_WRAPPERS = (census_words, cost_volume, aggregate_dir, aggregate_dual,

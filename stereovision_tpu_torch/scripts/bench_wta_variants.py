@@ -5,12 +5,13 @@
 
 Replaces the TPU kernel of ``scripts/bench_wta_variants.py:149``
 (``build``, :35-163), which strips one ingredient of the statistics kernel
-at a time. Here each variant is a compile-time variant of the shipping
-kernel (``ops/csrc/wta_stats.cu``, :func:`bench_cuda.wta_stats_variants`):
+at a time. Here each variant is a compile-time variant of the earlier
+design of the port's kernel, a warp a pixel (``ops/csrc/wta_stats.cu``
+built with ``-DSVT_VARIANTS``, :func:`bench_cuda.wta_stats_variants`):
 ``base`` and ``unpacked`` (the port's five maps are the script's unpacked
-layout) are the shipping kernel, ``smallblk`` and ``bigblk`` its 2 and 32
-warps per block, and ``f32sum``, ``bestonly``, ``nokey`` and ``sumonly`` as
-the script defines them. The script's packed output layout is a TPU store
+layout) are that design as it shipped, ``smallblk`` and ``bigblk`` its 2
+and 32 warps per block, and ``f32sum``, ``bestonly``, ``nokey`` and
+``sumonly`` as the script defines them. The script's packed output layout is a TPU store
 layout with no counterpart here.
 
 The script's input is the stacked refine: two (W=1280, Hs=368, D=128) int8

@@ -98,11 +98,16 @@ def test_aggregate_dual_plain_matches_pallas(pallas, dtype, axis):
         assert of.numpy().max() == 127  # the clamp was reached
 
 
-def test_speckle_counts_plain_matches_pallas(pallas):
+@pytest.mark.parametrize("k,nbins,shape", [(15, 6, (37, 150)), (15, 13, (37, 150)),
+                                           (3, 6, (37, 150)), (15, 6, (9, 12))])
+def test_speckle_counts_plain_matches_pallas(pallas, k, nbins, shape):
+    """The production frame's full-resolution binning (nbins = 13) and the
+    coarse search's (6), the smallest window, and a field smaller than its
+    window (the replicate padding reaches past the far border)."""
     import jax.numpy as jnp
 
-    k, r, nbins = 15, 32.0, 6
-    dv = _dv(37, 150, r)
+    r = 32.0
+    dv = _dv(*shape, r)
     ref = pallas.speckle_counts(jnp.asarray(dv), k, r, nbins, interpret=True)
     out = sgm_cuda.speckle_counts(torch.from_numpy(dv), k, r, nbins)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
@@ -177,7 +182,7 @@ def test_right_disparity_groups_are_per_slice(pallas):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("D,d_valid", [(40, 40), (40, 29), (32, 32)])
+@pytest.mark.parametrize("D,d_valid", [(40, 40), (40, 29), (32, 32), (107, 107)])
 def test_wta_stats_from_duals_plain_matches_pallas(pallas, D, d_valid):
     """Against the reference on the (W, H, D) transposes it reads; planes
     ≥ d_valid carry the reference's 2²¹ sentinel into cp and comp."""
@@ -465,6 +470,58 @@ def test_speckle_counts_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 150), (200, 70), (9, 12)])
+@pytest.mark.parametrize("nbins", [6, 13, 100])
+@pytest.mark.parametrize("k", [3, 15, 21])
+def test_speckle_counts_kernel_paths(cuda, k, nbins, shape):
+    """Both forms: the column counts (nbins ≤ 16) and the direct form
+    (nbins = 100), at tiles cut by the image's edges (200 rows: three
+    blocks' 64 and a ragged rest) and at an image smaller than the window."""
+    assert sgm_cuda.speckle_design(k, nbins) == ("direct" if nbins > 16 else "columns")
+    dv = torch.from_numpy(_dv(*shape)).to(cuda)
+    before = sgm_cuda.launch_counts()["speckle_counts"]
+    out = sgm_cuda.speckle_counts(dv, k, 32.0, nbins)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["speckle_counts"] == before + 1
+    assert torch.equal(out, sgm_cuda.speckle_counts_plain(dv, k, 32.0, nbins))
+
+
+@pytest.mark.cuda
+def test_speckle_design_follows_k_and_nbins(cuda):
+    """The column counts hold k ≤ 31 and nbins ≤ 16; the direct form
+    takes the rest, and its measurement entry takes any k and nbins."""
+    for k, nbins in [(1, 0), (15, 13), (31, 16), (4, 6)]:
+        assert sgm_cuda.speckle_design(k, nbins) == "columns"
+    for k, nbins in [(33, 6), (15, 17), (45, 300), (3, 64)]:
+        assert sgm_cuda.speckle_design(k, nbins) == "direct"
+    dv = torch.from_numpy(_dv(40, 75)).to(cuda)
+    for k, nbins in [(15, 13), (33, 6), (31, 16), (15, 17)]:
+        want = sgm_cuda.speckle_counts_plain(dv, k, 32.0, nbins)
+        assert torch.equal(sgm_cuda.speckle_counts(dv, k, 32.0, nbins), want)
+        assert torch.equal(bench_cuda.speckle_counts_direct(dv, k, 32.0, nbins), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [24.0, 7.0, 0.3])
+def test_speckle_counts_kernel_divides_as_the_cpu(cuda, r):
+    """r is no power of two: the kernel bins with a correctly rounded
+    division, as the plain version does on the CPU (on a card PyTorch
+    divides a tensor by a Python float through its reciprocal). Values at
+    the bins' edges (multiples of r / 2, where floor(v / r) and
+    floor(v / r + 0.5) step) and one ulp either side, and values the fast
+    division leaves to the slow one (infinities, NaN, huge, denormal)."""
+    edges = (np.arange(-20, 300, dtype=np.float32) * np.float32(r / 2)).astype(np.float32)
+    rows = [RNG.uniform(-2 * r, 14 * r, size=320).astype(np.float32), edges,
+            np.nextafter(edges, np.float32(np.inf)), np.nextafter(edges, np.float32(-np.inf))]
+    dv = np.stack([rows[i % 4] for i in range(60)])
+    dv[5, :7] = [np.inf, -np.inf, np.nan, 1e30, -1e-40, 0.0, -0.0]
+    want = sgm_cuda.speckle_counts_plain(torch.from_numpy(dv), 5, r, 16)
+    got = sgm_cuda.speckle_counts(torch.from_numpy(dv).to(cuda), 5, r, 16)
+    assert sgm_cuda.speckle_design(5, 16) == "columns"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_kernels_reject_wrong_dtype(cuda):
     with pytest.raises(TypeError):
         sgm_cuda.census_words(torch.zeros((4, 4), dtype=torch.float64, device=cuda))
@@ -492,6 +549,28 @@ def test_wta_stats_from_duals_kernel(cuda, D, d_valid):
     want = sgm_cuda.wta_stats_from_duals_plain(hf, hb, d_valid)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("D", [1, 32, 33, 107, 320, 1024])
+def test_wta_stats_from_duals_kernel_any_d(cuda, D, dtype, offset):
+    """G = 1, 2, 4, 16 and 32 lanes a pixel; 13 × 70 pixels are no multiple
+    of a block's (256 / G); d_valid = D and below it; negative sums; with
+    ``offset`` the volumes start one element past an aligned address, so
+    the staging copies their ends byte by byte."""
+    lo, hi = (-128, 128) if dtype == torch.int8 else (-600, 600)
+    n = 13 * 70 * D
+    flat = torch.from_numpy(RNG.integers(lo, hi, size=2 * n + 2)).to(dtype).to(cuda)
+    hf = flat[offset:offset + n].view(13, 70, D)
+    hb = flat[n + 1 + offset:2 * n + 1 + offset].view(13, 70, D)
+    for d_valid in sorted({D, max(1, D - 3), max(1, D // 2)}):
+        got = sgm_cuda.wta_stats_from_duals(hf, hb, d_valid)
+        torch.cuda.synchronize()
+        want = sgm_cuda.wta_stats_from_duals_plain(hf, hb, d_valid)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -536,6 +615,22 @@ def test_nearest_valid_lohi_kernel(cuda, axis):
     v[3] = False
     v[:, 7] = False
     up = torch.from_numpy(RNG.uniform(0, 64, size=(37, 1500)).astype(np.float32)).to(cuda)
+    got = sgm_cuda.nearest_valid_lohi(d, v, up, axis)
+    torch.cuda.synchronize()
+    want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((5, 10000), 1), ((9000, 7), 0)])
+def test_nearest_valid_lohi_kernel_long_lines(cuda, shape, axis):
+    """Lines past 8192 on both axes (no per-position array in shared
+    memory); a line with no valid pixel gets d_up on both sides."""
+    d = torch.from_numpy(RNG.uniform(0, 64, size=shape).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(RNG.uniform(size=shape) < 0.002).to(cuda)
+    v[2] = False
+    v[:, 3] = False
+    up = torch.from_numpy(RNG.uniform(0, 64, size=shape).astype(np.float32)).to(cuda)
     got = sgm_cuda.nearest_valid_lohi(d, v, up, axis)
     torch.cuda.synchronize()
     want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
