@@ -16,8 +16,8 @@ of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the eleven CUDA sources of ``stereovision_tpu_torch/ops/csrc``
-   from the checkout, and three of them again with their measurement
-   variants, one nvcc per library, all at once;
+   from the checkout, and five of them again with their measurement
+   variants and ablations, one nvcc per library, all at once;
 3. run one frame of each path recording every kernel launch's inputs, then
    replay each recorded launch against the kernel's plain PyTorch version on
    the same inputs: all must be exact; so must ``wta_stats_from_duals`` on
@@ -73,12 +73,17 @@ of which raises (exit code non-zero, no result line) on failure:
    staging and flushing alone, the scan alone), device alone; then ``aggregate_dir``'s
    ``wta_out`` at 720x1280x320 against its plain version, timed beside the
    plain ``aggregate_dir`` launch; then (:func:`redesign_phase`) the
-   redesigned ``wta_stats_from_duals`` and ``speckle_counts`` against their
-   earlier designs (``bench_wta_variants``' ``base`` variant and
+   redesigned ``census_words``, ``cost_volume``, ``wta_stats_from_duals``
+   and ``speckle_counts`` against their earlier designs
+   (``bench_cuda.census_words_first``, ``bench_cuda.cost_volume_first``,
+   ``bench_wta_variants``' ``base`` variant and
    ``bench_cuda.speckle_counts_direct``) on the production frame's recorded
-   launches (the refine stack (960, 1280, 32) and the coarse search
-   (240, 426, 107); 720x1280 at k=15, nbins=13 and 240x426 at k=15,
-   nbins=6): equal outputs, timed in turns (earlier, new, new, earlier),
+   launches (census at 720x1280 and 240x426, 5x5; the refine stack
+   (960, 1280, 32) and the coarse search (240, 426, 107); 720x1280 at
+   k=15, nbins=13 and 240x426 at k=15, nbins=6) and one seeded
+   ``cost_volume`` launch at (720, 1280, 320): equal outputs, timed in
+   turns (earlier, new, new, earlier), the census and cost kernels also
+   with a part taken out (:func:`ablations`),
    and one ``nearest_valid_lohi`` launch on a line past 8192 on each axis,
    exact against its plain version.
 
@@ -152,12 +157,18 @@ SLICE4_KERNELS = {
 # pixel) and speckle_counts (running per-column bin counts, O(k) a pixel),
 # and "lo as scratch, column tiles" nearest_valid_lohi's fix (the left
 # values parked in lo: lines of any length; axis 0 a tile of 32 columns a
-# block, coalesced); every other kernel keeps the design it was first
-# ported with
+# block, coalesced); "staged rows, 4 pixels a lane" census_words' (a tile
+# staged with its replicated border, compares unrolled with constant bit
+# positions, a 16-byte store a word plane) and "lanes over x, staged span"
+# cost_volume's (a warp's lanes on consecutive pixels, runs of 16
+# disparities, the block's output span staged and written in 16-byte
+# stores); every other kernel keeps the design it was first ported with
 DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring",
            "shift_gather": "row grid", "wta_stats_from_duals": "staged pixels",
            "speckle_counts": "column counts",
-           "nearest_valid_lohi": "lo as scratch, column tiles"}
+           "nearest_valid_lohi": "lo as scratch, column tiles",
+           "census_words": "staged rows, 4 pixels a lane",
+           "cost_volume": "lanes over x, staged span"}
 # lines past the 8192 that nearest_valid_lohi once refused: shape, axis
 LONG_LINES = (((4, 10000), 1), ((9000, 6), 0))
 FIRST_DESIGN = "first port"
@@ -853,28 +864,84 @@ def script_phases(torch, card: str):
     return rows
 
 
+def launch_label(kname: str, a) -> str:
+    """A redesigned kernel's launch by its shape and the arguments that
+    choose its work."""
+    if kname == "census_words":
+        return f"{tuple(a[0].shape)} {a[1]}x{a[2]}"
+    if kname == "cost_volume":
+        nw, h, wd = a[0].shape
+        return f"({h}, {wd}, {a[2]}) nw={nw} min_d={a[3]}"
+    if kname == "speckle_counts":
+        return f"{tuple(a[0].shape)} k={a[1]} nbins={a[3]}"
+    return str(tuple(a[0].shape))
+
+
+def seeded_cost_launch(torch, sgm_cuda):
+    """One cost_volume launch at the full search's (720, 1280, 320): the 5x5
+    census of the seeded flat pair, min_d 0, max_cost 24."""
+    cl, cr = (sgm_cuda.census_words(torch.as_tensor(img, device="cuda"), 5, 5)
+              for img in flat_pair())
+    return (cl, cr, D, 0, 24), {}
+
+
+def ablations(torch, kname: str, a, label: str):
+    """The device time of each ablation of the shipping census_words (at
+    5x5) or cost_volume (at nw = 1) kernel on one recorded launch's inputs
+    (``bench_cuda.census_words_ablations``, ``cost_volume_ablations``),
+    each defined one exact against its plain version; None for another
+    launch."""
+    from stereovision_tpu_torch.ops import bench_cuda
+
+    if kname == "census_words" and tuple(a[1:3]) == (5, 5):
+        fn, plain, forms, args = (bench_cuda.census_words_ablations,
+                                  bench_cuda.census_words_ablations_plain,
+                                  bench_cuda.CENSUS_ABLATIONS, a[:1])
+    elif kname == "cost_volume" and a[0].shape[0] == 1:
+        fn, plain, forms, args = (bench_cuda.cost_volume_ablations,
+                                  bench_cuda.cost_volume_ablations_plain,
+                                  bench_cuda.COST_ABLATIONS, a)
+    else:
+        return None
+    out = {}
+    for form in forms:
+        if form == "direct" and a[2] % 16:
+            continue
+        want = plain(*args, form)
+        if want is not None:
+            check(torch.equal(fn(*args, form), want),
+                  f"the {form} ablation differs from its plain version at {label}")
+        out[form] = device_ms(lambda form=form: fn(*args, form), f"{form} at {label}")
+    return out
+
+
 def redesign_phase(torch, card: str, calls):
     """The end of phase 10: each redesigned kernel against its earlier design
     on the production frame's recorded launches (wrapper name → [(args,
-    kwargs)]): both exact against the plain version, then timed in turns
-    (earlier, new, new, earlier; events and the device alone); and
+    kwargs)]; each distinct launch once, see :func:`launch_label`): both
+    exact against the plain version, then timed in turns (earlier, new,
+    new, earlier; events and the device alone), census_words and
+    cost_volume also with a part taken out (:func:`ablations`); and
     ``nearest_valid_lohi`` on lines past 8192 (``LONG_LINES``), exact.
-    Returns {wrapper name: {shape: the turns' (ms, device_ms) by design,
-    and the bound}}."""
+    Returns {wrapper name: {launch: the turns' (ms, device_ms) by design,
+    the bound and the ablations' device_ms}}."""
     from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
 
     earlier = {
         "wta_stats_from_duals": lambda hf, hb, d_valid=None: bench_cuda.wta_stats_variants(
             hf, hb, "base", d_valid),
         "speckle_counts": bench_cuda.speckle_counts_direct,
+        "census_words": bench_cuda.census_words_first,
+        "cost_volume": bench_cuda.cost_volume_first,
     }
     table = {}
     for kname, kcalls in calls.items():
         forms = {"earlier": earlier[kname], "new": getattr(sgm_cuda, kname)}
         table[kname] = {}
         for a, kw in kcalls:
-            label = str(tuple(a[0].shape)) + ("" if kname == "wta_stats_from_duals"
-                                              else f" k={a[1]} nbins={a[3]}")
+            label = launch_label(kname, a)
+            if label in table[kname]:
+                continue
             want = plain_of(sgm_cuda, kname)(*a, **kw)
             want = want if isinstance(want, tuple) else (want,)
             for name, fn in forms.items():
@@ -897,6 +964,12 @@ def redesign_phase(torch, card: str, calls):
                                              for ms, dev in v) for name, v in turns.items())
                   + f"; bound {b_ms:.4f} ms ({b_by}), card {card}")
             table[kname][label] = {**turns, "bound_ms": b_ms, "bound_by": b_by}
+            abl = ablations(torch, kname, a, f"{kname} at {label}")
+            if abl:
+                table[kname][label]["ablations"] = abl
+                print(f"{kname} at {label} with a part taken out, device alone: "
+                      + ", ".join(f"{f} {fmt(ms)}" for f, ms in abl.items())
+                      + f" (the whole kernel {fmt(turns['new'][0][1])}), card {card}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for shape, axis in LONG_LINES:
         d = torch.rand(shape, generator=gen, device="cuda") * 64
@@ -1133,7 +1206,9 @@ def main() -> int:
                            "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
     next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
-    redesigned = {k: prod[k] for k in ("wta_stats_from_duals", "speckle_counts")}
+    redesigned = {k: prod[k] for k in ("census_words", "cost_volume",
+                                        "wta_stats_from_duals", "speckle_counts")}
+    redesigned["cost_volume"] = redesigned["cost_volume"] + [seeded_cost_launch(torch, sgm_cuda)]
     del recorded, prod
     torch.cuda.empty_cache()
     chain_rows, host = parallel_phases(torch, card)

@@ -18,12 +18,17 @@ package's four TPU measurement scripts, each beside its plain version.
 - :func:`speckle_counts_direct`: ``speckle_counts``' earlier design (the
   direct k×k form of ``csrc/speckle.cu``) at any k and nbins, timed beside
   the shipping column counts (no TPU counterpart).
+- :func:`census_words_first` and :func:`cost_volume_first`: the first
+  designs of ``census_words`` and ``cost_volume`` (a thread a pixel; four
+  disparities a thread), timed beside the shipping kernels, and
+  :func:`census_words_ablations` / :func:`cost_volume_ablations`: the
+  shipping kernels with one part taken out (no TPU counterpart).
 - :func:`right_disparity_variants` ← ``scripts/bench_rdisp.py:84``:
   ``right_disparity`` read in place, from a (D, H, W) copy, and through a
   band staged in shared memory (``csrc/right_disparity.cu``).
 
-The three variant families are compile-time variants of the shipping
-kernels, built into libraries of their own (``_build.VARIANTS``); the
+The variant families and the ablations are compile-time variants of the
+shipping kernels, built into libraries of their own (``_build.VARIANTS``); the
 variant named ``in_place`` is the shipping kernel itself, ``shipping`` and
 ``base`` the earlier designs of ``aggregate_dual`` and
 ``wta_stats_from_duals``. No engine path launches any of these: they are
@@ -429,8 +434,143 @@ def speckle_counts_direct(dv: torch.Tensor, k: int, r: float, nbins: int) -> tor
     return out
 
 
+# ---------------------------------------------------------------------------
+# census_words and cost_volume, the first designs
+# ---------------------------------------------------------------------------
+
+
+def census_words_first(img: torch.Tensor, ksize: int = 5, wsize: int = 5) -> torch.Tensor:
+    """``sgm_cuda.census_words`` through its first design (a thread a pixel,
+    runtime window loops; ``csrc/census.cu``'s ``census_first``). The same
+    function: its plain version is ``sgm_cuda.census_words_plain``."""
+    if img.device.type == "cpu":
+        return sgm_cuda.census_words_plain(img, ksize, wsize)
+    _check(img, "img", torch.float32, 2)
+    H, W = img.shape
+    out = torch.empty(((ksize * wsize - 1 + 31) // 32, H, W), dtype=torch.int32,
+                      device=img.device)
+    _launch("census_first", img.device, img.data_ptr(), out.data_ptr(), H, W, ksize, wsize)
+    _launches["census_words_first"] += 1
+    return out
+
+
+def cost_volume_first(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int, min_d: int,
+                      max_cost: int) -> torch.Tensor:
+    """``sgm_cuda.cost_volume`` through its first design (four disparities a
+    thread where D % 4 == 0, one elsewhere; ``csrc/cost.cu``'s
+    ``cost_first``). The same function: its plain version is
+    ``sgm_cuda.cost_volume_plain``."""
+    if cl.device.type == "cpu":
+        return sgm_cuda.cost_volume_plain(cl, cr, num_disparities, min_d, max_cost)
+    _check(cl, "cl", torch.int32, 3)
+    _check(cr, "cr", torch.int32, 3)
+    if cl.shape != cr.shape:
+        raise ValueError(f"census shapes differ: {tuple(cl.shape)} vs {tuple(cr.shape)}")
+    nw, H, W = cl.shape
+    out = torch.empty((H, W, num_disparities), dtype=torch.int8, device=cl.device)
+    _launch("cost_first", cl.device, cl.data_ptr(), cr.data_ptr(), out.data_ptr(), H, W,
+            num_disparities, nw, min_d, int(max_cost))
+    _launches["cost_volume_first"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# census_words and cost_volume, ablations of the shipping kernels
+# ---------------------------------------------------------------------------
+
+# form → the census kernel's ablation code (csrc/census.cu, kStageOnly ...)
+CENSUS_ABLATIONS = {"stage_only": 1, "no_store": 2}
+# form → the cost kernel's ablation code (csrc/cost.cu, kNoPopc ...)
+COST_ABLATIONS = {"no_popc": 1, "no_runs": 2, "no_copy": 3, "copy_only": 4, "direct": 5}
+
+
+def _ablation(form: str, forms: dict) -> int:
+    if form not in forms:
+        raise ValueError(f"unknown ablation {form!r}: {tuple(forms)}")
+    return forms[form]
+
+
+def census_words_ablations_plain(img: torch.Tensor, form: str):
+    """``stage_only`` stores zero words; ``no_store`` stores nothing: None."""
+    _ablation(form, CENSUS_ABLATIONS)
+    if form == "no_store":
+        return None
+    return torch.zeros((1, *img.shape), dtype=torch.int32, device=img.device)
+
+
+def census_words_ablations(img: torch.Tensor, form: str):
+    """The shipping 5×5 ``census_words`` kernel with one part taken out, to
+    say which part holds its time (a key of :data:`CENSUS_ABLATIONS`):
+    ``stage_only`` stages the tile and stores zero words, no compare;
+    ``no_store`` makes every compare and stores no word. (H, W) float32 →
+    (1, H, W) int32, defined for ``stage_only`` only."""
+    code = _ablation(form, CENSUS_ABLATIONS)
+    if img.device.type == "cpu":
+        return census_words_ablations_plain(img, form)
+    _check(img, "img", torch.float32, 2)
+    out = torch.empty((1, *img.shape), dtype=torch.int32, device=img.device)
+    _launch("census_ablations", img.device, img.data_ptr(), out.data_ptr(), *img.shape, code)
+    _launches["census_words_ablations"] += 1
+    return out
+
+
+def cost_volume_ablations_plain(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
+                                min_d: int, max_cost: int, form: str):
+    """``no_popc``: cost_volume_plain's volume with each popcount replaced
+    by the xor's low 6 bits; ``direct``: cost_volume_plain's volume; the
+    other forms write no defined volume: None."""
+    _ablation(form, COST_ABLATIONS)
+    if form == "direct":
+        return sgm_cuda.cost_volume_plain(cl, cr, num_disparities, min_d, max_cost)
+    if form != "no_popc":
+        return None
+    _, H, W = cl.shape
+    out = torch.empty((H, W, num_disparities), dtype=torch.int8, device=cl.device)
+    x = torch.arange(W, device=cl.device)
+    for d in range(num_disparities):
+        src = x - min_d - d
+        valid = (src >= 0) & (src <= W - 1)
+        cost = (cl[0] ^ cr[0][:, src.clamp(0, W - 1)]) & 0x3F
+        out[:, :, d] = torch.where(valid[None, :], cost, max_cost).to(torch.int8)
+    return out
+
+
+def cost_volume_ablations(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int, min_d: int,
+                          max_cost: int, form: str):
+    """The shipping ``cost_volume`` kernel at nw = 1 with one part taken
+    out, to say which part holds its time (a key of
+    :data:`COST_ABLATIONS`): ``no_popc`` (the xor's low 6 bits for the
+    popcount), ``no_runs`` (the window staged, zero runs put into the
+    staged span and written out), ``no_copy`` (the runs made, the span not
+    written out), ``copy_only`` (the staged span written out alone),
+    ``direct`` (each run stored to device memory as it is made, no staged
+    span: D a multiple of 16 only). The
+    block shape and padding are the shipping kernel's
+    (``sgm_cuda.cost_design``). (1, H, W) int32 census pair → (H, W, D)
+    int8, defined for ``no_popc`` only."""
+    code = _ablation(form, COST_ABLATIONS)
+    if form == "direct" and num_disparities % 16:
+        raise ValueError(f"the direct form takes D a multiple of 16, got {num_disparities}")
+    if cl.device.type == "cpu":
+        return cost_volume_ablations_plain(cl, cr, num_disparities, min_d, max_cost, form)
+    _check(cl, "cl", torch.int32, 3)
+    _check(cr, "cr", torch.int32, 3)
+    if cl.shape != cr.shape or cl.shape[0] != 1:
+        raise ValueError(f"the ablations take one census word a pixel, one shape: "
+                         f"{tuple(cl.shape)} vs {tuple(cr.shape)}")
+    _, H, W = cl.shape
+    _, tx, sh = sgm_cuda.cost_design(num_disparities, 1)
+    out = torch.empty((H, W, num_disparities), dtype=torch.int8, device=cl.device)
+    _launch("cost_ablations", cl.device, cl.data_ptr(), cr.data_ptr(), out.data_ptr(), H, W,
+            num_disparities, min_d, int(max_cost), code, tx.bit_length() - 1, sh)
+    _launches["cost_volume_ablations"] += 1
+    return out
+
+
 KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, aggregate_staged_variants,
-                   wta_stats_variants, right_disparity_variants, speckle_counts_direct)
+                   wta_stats_variants, right_disparity_variants, speckle_counts_direct,
+                   census_words_first, cost_volume_first, census_words_ablations,
+                   cost_volume_ablations)
 COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS)
 sgm_cuda.register({
     "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L, _I, _I, _I, _P)),
@@ -443,4 +583,10 @@ sgm_cuda.register({
     "right_disparity_variants": ("svt_right_disparity_variant", (_P, _P) + (_I,) * 6 + (_P,)),
     "speckle_direct": ("svt_speckle_counts_direct", (_P, _P, _I, _I, _I, _F, _I, _P),
                        "speckle"),
+    "census_first": ("svt_census_words_first", (_P, _P, _I, _I, _I, _I, _P), "census"),
+    "cost_first": ("svt_cost_volume_first", (_P, _P, _P) + (_I,) * 6 + (_P,), "cost"),
+    "census_ablations": ("svt_census_words_ablation", (_P, _P, _I, _I, _I, _P),
+                         "census_variants"),
+    "cost_ablations": ("svt_cost_volume_ablation", (_P, _P, _P) + (_I,) * 8 + (_P,),
+                       "cost_variants"),
 }, COUNTS)

@@ -39,6 +39,7 @@ bytes, and the LR check reads the summed volume's diagonal in place).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,8 +53,8 @@ MAX_PLANES = 1024  # disparities a register-resident kernel takes on a card
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "census": ("svt_census_words", (_P, _P, _I, _I, _I, _I, _P)),
-    "cost": ("svt_cost_volume", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "census": ("svt_census_words", (_P, _P) + (_I,) * 5 + (_P,)),
+    "cost": ("svt_cost_volume", (_P, _P, _P) + (_I,) * 9 + (_P,)),
     "aggregate_dir": ("svt_aggregate_dir",
                       (_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P, _P)),
     "aggregate": ("svt_aggregate_dual",
@@ -172,16 +173,30 @@ def census_words_plain(img: torch.Tensor, ksize: int = 5, wsize: int = 5) -> tor
     return im.census_transform(img.to(torch.float32), ksize, wsize).permute(2, 0, 1).contiguous()
 
 
+# census window (ksize, wsize) → the census kernel's templated instance
+CENSUS_FORMS = {(3, 3): 1, (5, 5): 2, (7, 5): 3, (7, 7): 4, (9, 7): 5}
+
+
+def census_design(ksize: int, wsize: int) -> int:
+    """The instance :func:`census_words` launches on a card for a ksize-wide,
+    wsize-high window: one of ``CENSUS_FORMS``' values (compares unrolled
+    with constant bit positions), or 0, the same staged kernel with runtime
+    window loops."""
+    return CENSUS_FORMS.get((ksize, wsize), 0)
+
+
 def census_words(img: torch.Tensor, ksize: int = 5, wsize: int = 5) -> torch.Tensor:
     """(H, W) float32 image → (nw, H, W) int32 census words; ``ksize`` is the
-    window width, ``wsize`` its height."""
+    window width, ``wsize`` its height (see :func:`census_design` for the
+    kernel's instances)."""
     if img.device.type == "cpu":
         return census_words_plain(img, ksize, wsize)
     _check(img, "img", torch.float32, 2)
     H, W = img.shape
     nw = (ksize * wsize - 1 + 31) // 32
     out = torch.empty((nw, H, W), dtype=torch.int32, device=img.device)
-    _launch("census", img.device, img.data_ptr(), out.data_ptr(), H, W, ksize, wsize)
+    _launch("census", img.device, img.data_ptr(), out.data_ptr(), H, W, ksize, wsize,
+            census_design(ksize, wsize))
     _launches["census_words"] += 1
     return out
 
@@ -208,10 +223,50 @@ def cost_volume_plain(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
     return out
 
 
+_COST_THREADS = 256
+_COST_SPAN = 49152  # bytes of a block's output span, where TX = 32 allows it
+
+
+def _bank_ways(words, sh: int) -> int:
+    """The most distinct shared-memory words that 32 lanes' accesses to
+    logical ``words`` put on one bank, with a pad word every 2^sh words."""
+    ways = [set() for _ in range(32)]
+    for q in words:
+        p = q + (q >> sh)
+        ways[p % 32].add(p)
+    return max(len(w) for w in ways)
+
+
+@functools.lru_cache(maxsize=None)
+def cost_design(D: int, nw: int) -> tuple[int, int, int]:
+    """(instance, TX, sh) that :func:`cost_volume` launches on a card for D
+    disparities and nw census words a pixel: the instance is nw (1 or 2,
+    popcounts unrolled) or 0 (any nw, a runtime loop); a block owns TX
+    columns of a row, the largest power of two from 32 to 256 whose output
+    span TX*D stays within 48 KB (32 past that); and the staged span has a
+    pad word every 2^sh words, sh in 2..7 the one that puts the fewest
+    accesses on one bank, summed over the lanes' 4-byte stores (32 pixels,
+    D bytes apart) and the copy-out's loads (32 consecutive 16-byte chunks);
+    ties to the larger sh (less padding)."""
+    tx = _COST_THREADS
+    while tx > 32 and tx * D > _COST_SPAN:
+        tx //= 2
+
+    def ways(sh):
+        store = max(_bank_ways([(lane * D) // 4 + k for lane in range(32)], sh)
+                    for k in range(4))
+        copy = max(_bank_ways([4 * c + k for c in range(c0, c0 + 32)], sh)
+                   for k in range(4) for c0 in (0, 7))
+        return store + copy, -sh
+
+    return (nw if nw in (1, 2) else 0), tx, min(range(2, 8), key=ways)
+
+
 def cost_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
                 min_d: int, max_cost: int) -> torch.Tensor:
     """(nw, H, W) int32 census of the left and the right image → (H, W, D)
-    int8 Hamming costs (see :func:`cost_volume_plain`)."""
+    int8 Hamming costs (see :func:`cost_volume_plain`, and
+    :func:`cost_design` for the kernel's instances)."""
     if cl.device.type == "cpu":
         return cost_volume_plain(cl, cr, num_disparities, min_d, max_cost)
     _check(cl, "cl", torch.int32, 3)
@@ -222,8 +277,9 @@ def cost_volume(cl: torch.Tensor, cr: torch.Tensor, num_disparities: int,
         raise ValueError(f"max_cost {max_cost} does not fit int8")
     nw, H, W = cl.shape
     out = torch.empty((H, W, num_disparities), dtype=torch.int8, device=cl.device)
+    form, tx, sh = cost_design(num_disparities, nw)
     _launch("cost", cl.device, cl.data_ptr(), cr.data_ptr(), out.data_ptr(), H, W,
-            num_disparities, nw, min_d, int(max_cost))
+            num_disparities, nw, min_d, int(max_cost), form, tx.bit_length() - 1, sh)
     _launches["cost_volume"] += 1
     return out
 

@@ -290,6 +290,82 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
         "aggregate_dual_chain"}
 
 
+def test_census_design_templates_the_engine_windows():
+    forms = {size: sgm_cuda.census_design(*size) for size in sgm_cuda.CENSUS_FORMS}
+    assert sorted(forms) == [(3, 3), (5, 5), (7, 5), (7, 7), (9, 7)]
+    assert sorted(forms.values()) == [1, 2, 3, 4, 5]
+    # any other window (the transpose of a templated one too) runs the
+    # runtime-size instance
+    assert {sgm_cuda.census_design(k, w) for k, w in [(5, 7), (9, 9), (4, 3), (11, 3)]} == {0}
+
+
+@pytest.mark.parametrize("D", [1, 16, 32, 33, 45, 107, 320, 1000, 1024])
+@pytest.mark.parametrize("nw", [1, 2, 3])
+def test_cost_design(D, nw):
+    """The instance follows nw; TX is the widest tile (32-256) whose output
+    span stays within 48 KB; the staged span's pad keeps the lanes' stores
+    and the copy-out's loads within a few accesses a bank."""
+    form, tx, sh = sgm_cuda.cost_design(D, nw)
+    assert form == (nw if nw < 3 else 0)
+    assert tx in (32, 64, 128, 256) and (tx * D <= 49152 or tx == 32)
+    assert tx == 256 or 2 * tx * D > 49152
+    assert 2 <= sh <= 7
+    ways = sgm_cuda._bank_ways
+    store = max(ways([(lane * D) // 4 + k for lane in range(32)], sh) for k in range(4))
+    copy = max(ways([4 * c + k for c in range(c0, c0 + 32)], sh)
+               for k in range(4) for c0 in (0, 7))
+    assert store <= 3 and copy <= 4 and store + copy <= 6
+    if D == 32:  # the refine stack's stores meet no conflict
+        assert store == 1
+    # unpadded (a shift past any index), the lanes' stores D bytes apart meet
+    # 8 a bank at D = 32 and 16 at D = 320; a pad word every 4 spreads 32
+    # consecutive chunks over all banks
+    assert ways([8 * lane for lane in range(32)], 40) == 8
+    assert ways([80 * lane for lane in range(32)], 40) == 16
+    assert ways([4 * c for c in range(32)], 2) == 1
+
+
+@pytest.mark.parametrize("k,w", [(5, 5), (7, 5), (3, 3)])
+def test_census_words_first_on_the_cpu_is_the_plain_version(k, w):
+    img = torch.from_numpy(_image(37, 150))
+    before = sgm_cuda.launch_counts()
+    out = bench_cuda.census_words_first(img, k, w)
+    assert torch.equal(out, sgm_cuda.census_words_plain(img, k, w))
+    assert sgm_cuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("min_d", [0, 4])
+def test_cost_volume_first_on_the_cpu_is_the_plain_version(min_d):
+    cl, cr = (sgm_cuda.census_words(torch.from_numpy(_image(24, 140))) for _ in range(2))
+    before = sgm_cuda.launch_counts()
+    out = bench_cuda.cost_volume_first(cl, cr, 40, min_d, 24)
+    assert torch.equal(out, sgm_cuda.cost_volume_plain(cl, cr, 40, min_d, 24))
+    assert sgm_cuda.launch_counts() == before
+
+
+def test_census_and_cost_ablations_plain_and_arguments():
+    img = torch.from_numpy(_image(9, 21))
+    assert torch.equal(bench_cuda.census_words_ablations(img, "stage_only"),
+                       torch.zeros((1, 9, 21), dtype=torch.int32))
+    assert bench_cuda.census_words_ablations(img, "no_store") is None
+    cl, cr = (sgm_cuda.census_words(torch.from_numpy(_image(9, 21))) for _ in range(2))
+    # no_popc: the xor's low 6 bits where the column is inside, max_cost outside
+    vol = bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "no_popc")
+    assert vol.shape == (9, 21, 7) and vol.dtype == torch.int8
+    assert torch.equal(vol[:, 10, 3], ((cl[0, :, 10] ^ cr[0, :, 5]) & 0x3F).to(torch.int8))
+    assert bool((vol[:, 1, 0] == 24).all())
+    for form in ("no_runs", "no_copy", "copy_only"):
+        assert bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, form) is None
+    assert torch.equal(bench_cuda.cost_volume_ablations(cl, cr, 16, 2, 24, "direct"),
+                       sgm_cuda.cost_volume_plain(cl, cr, 16, 2, 24))
+    with pytest.raises(ValueError):
+        bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "direct")
+    with pytest.raises(ValueError):
+        bench_cuda.census_words_ablations(img, "no_compare")
+    with pytest.raises(ValueError):
+        bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "no_popcount")
+
+
 def test_aggregate_dual_rejects_bad_arguments():
     cost = torch.zeros((4, 5, 8), dtype=torch.int8)
     with pytest.raises(TypeError):
@@ -427,10 +503,19 @@ def test_aggregate_dir_wta_out_plain_matches_pallas(pallas, reverse, with_acc):
 # ---------------------------------------------------------------------------
 
 
+# every templated census window, and runtime ones (an even width, a window
+# of exactly 32 bits, three words)
+_CENSUS_SIZES = [*sgm_cuda.CENSUS_FORMS, (4, 3), (11, 3), (9, 9)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,w", [(5, 5), (7, 5), (3, 3)])
-def test_census_words_kernel(cuda, k, w):
-    img = torch.from_numpy(_image(37, 150)).to(cuda)
+@pytest.mark.parametrize("shape", [(37, 150), (19, 426), (13, 128)])
+@pytest.mark.parametrize("k,w", _CENSUS_SIZES)
+def test_census_words_kernel(cuda, k, w, shape):
+    """W = 150 and 426 are not multiples of 4 (rows start off 16-byte
+    boundaries) nor of the 128-pixel tile; 37×150 words make a plane that
+    shifts the next one's alignment."""
+    img = torch.from_numpy(_image(*shape)).to(cuda)
     before = sgm_cuda.launch_counts()["census_words"]
     out = sgm_cuda.census_words(img, k, w)
     torch.cuda.synchronize()
@@ -438,15 +523,68 @@ def test_census_words_kernel(cuda, k, w):
     assert torch.equal(out, sgm_cuda.census_words_plain(img, k, w))
 
 
+def _cost_case(D, k, w):
+    """A seeded census pair wide enough that every disparity plane of D has
+    columns inside the image; rows of an odd D's volume start off 16-byte
+    boundaries."""
+    h, wd = (24, 140) if D <= 107 else (5, D + 60)
+    return (sgm_cuda.census_words(torch.from_numpy(_image(h, wd)), k, w) for _ in range(2))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("min_d,D,k", [(0, 40, 5), (4, 64, 5), (-3, 45, 5), (0, 33, 7)])
-def test_cost_volume_kernel(cuda, min_d, D, k):
-    cl = sgm_cuda.census_words(torch.from_numpy(_image(24, 140)).to(cuda), k, 5)
-    cr = sgm_cuda.census_words(torch.from_numpy(_image(24, 140)).to(cuda), k, 5)
-    n_bits = k * 5 - 1
+@pytest.mark.parametrize("k,w", [(5, 5), (7, 5), (9, 9)])
+@pytest.mark.parametrize("min_d", [0, 4, -3])
+@pytest.mark.parametrize("D", [32, 33, 40, 45, 64, 107, 320, 1024])
+def test_cost_volume_kernel(cuda, D, min_d, k, w):
+    """nw = 1 (5×5), 2 (7×5) and 3 (9×9, the runtime-nw instance)."""
+    cl, cr = (c.to(cuda) for c in _cost_case(D, k, w))
+    n_bits = k * w - 1
+    before = sgm_cuda.launch_counts()["cost_volume"]
     out = sgm_cuda.cost_volume(cl, cr, D, min_d, n_bits)
     torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["cost_volume"] == before + 1
     assert torch.equal(out, sgm_cuda.cost_volume_plain(cl, cr, D, min_d, n_bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 107, 320])
+def test_census_and_cost_ablations_kernel(cuda, D):
+    """The ablations with a defined output equal their plain versions; each
+    launch is counted."""
+    img = torch.from_numpy(_image(37, 426)).to(cuda)
+    before = sgm_cuda.launch_counts()
+    for form in bench_cuda.CENSUS_ABLATIONS:
+        got = bench_cuda.census_words_ablations(img, form)
+        want = bench_cuda.census_words_ablations_plain(img, form)
+        assert want is None or torch.equal(got, want)
+    cl, cr = sgm_cuda.census_words(img), sgm_cuda.census_words(img.roll(7, 1).contiguous())
+    forms = [f for f in bench_cuda.COST_ABLATIONS if f != "direct" or D % 16 == 0]
+    for form in forms:
+        got = bench_cuda.cost_volume_ablations(cl, cr, D, 3, 24, form)
+        want = bench_cuda.cost_volume_ablations_plain(cl, cr, D, 3, 24, form)
+        assert want is None or torch.equal(got, want)
+    torch.cuda.synchronize()
+    after = sgm_cuda.launch_counts()
+    assert after["census_words_ablations"] == before["census_words_ablations"] + 2
+    assert after["cost_volume_ablations"] == before["cost_volume_ablations"] + len(forms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,min_d", [(32, 0), (107, 4), (320, -3)])
+def test_first_designs_equal_the_shipping_kernels(cuda, D, min_d):
+    """bench_cuda's first-design census and cost kernels, counted apart,
+    give the shipping kernels' words and volumes."""
+    img = torch.from_numpy(_image(37, 426)).to(cuda)
+    before = sgm_cuda.launch_counts()
+    cl = bench_cuda.census_words_first(img)
+    assert torch.equal(cl, sgm_cuda.census_words(img))
+    cr = sgm_cuda.census_words(img.roll(5, 1).contiguous())
+    assert torch.equal(bench_cuda.cost_volume_first(cl, cr, D, min_d, 24),
+                       sgm_cuda.cost_volume(cl, cr, D, min_d, 24))
+    torch.cuda.synchronize()
+    after = sgm_cuda.launch_counts()
+    assert after["census_words_first"] == before["census_words_first"] + 1
+    assert after["cost_volume_first"] == before["cost_volume_first"] + 1
 
 
 @pytest.mark.cuda
