@@ -73,19 +73,23 @@ of which raises (exit code non-zero, no result line) on failure:
    staging and flushing alone, the scan alone), device alone; then ``aggregate_dir``'s
    ``wta_out`` at 720x1280x320 against its plain version, timed beside the
    plain ``aggregate_dir`` launch; then (:func:`redesign_phase`) the
-   redesigned ``census_words``, ``cost_volume``, ``wta_stats_from_duals``
-   and ``speckle_counts`` against their earlier designs
-   (``bench_cuda.census_words_first``, ``bench_cuda.cost_volume_first``,
-   ``bench_wta_variants``' ``base`` variant and
-   ``bench_cuda.speckle_counts_direct``) on the production frame's recorded
-   launches (census at 720x1280 and 240x426, 5x5; the refine stack
-   (960, 1280, 32) and the coarse search (240, 426, 107); 720x1280 at
-   k=15, nbins=13 and 240x426 at k=15, nbins=6) and one seeded
-   ``cost_volume`` launch at (720, 1280, 320): equal outputs, timed in
-   turns (earlier, new, new, earlier), the census and cost kernels also
-   with a part taken out (:func:`ablations`),
-   and one ``nearest_valid_lohi`` launch on a line past 8192 on each axis,
-   exact against its plain version.
+   redesigned ``census_words``, ``cost_volume``, ``wta_stats_from_duals``,
+   ``speckle_counts``, ``right_disparity`` and ``nearest_valid_lohi``
+   against their earlier designs (``bench_cuda.census_words_first``,
+   ``bench_cuda.cost_volume_first``, ``bench_wta_variants``' ``base``
+   variant, ``bench_cuda.speckle_counts_direct``, ``bench_rdisp``'s
+   ``in_place`` variant and ``bench_cuda.nearest_valid_lohi_chunks``) on
+   the production frame's recorded launches (census at 720x1280 and
+   240x426, 5x5; the refine stack (960, 1280, 32) and the coarse search
+   (240, 426, 107); 720x1280 at k=15, nbins=13 and 240x426 at k=15,
+   nbins=6; the LR check at (720, 1280, 32) and (240, 426, 107) int8;
+   the fill's 720x1280 along each axis), one seeded ``cost_volume`` launch
+   at (720, 1280, 320) and the LR-on full search's ``right_disparity``
+   launch at (720, 1280, 320) int16: equal outputs, timed in turns
+   (earlier, new, new, earlier), the census, cost and right-disparity
+   kernels also with a part taken out (:func:`ablations`), and one ``nearest_valid_lohi``
+   launch on a line past 8192 on each axis, exact against its plain
+   version.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
@@ -155,9 +159,12 @@ SLICE4_KERNELS = {
 # vectors), "staged pixels" and "column counts" those of
 # wta_stats_from_duals (a block's pixels staged by cp.async, G lanes a
 # pixel) and speckle_counts (running per-column bin counts, O(k) a pixel),
-# and "lo as scratch, column tiles" nearest_valid_lohi's fix (the left
-# values parked in lo: lines of any length; axis 0 a tile of 32 columns a
-# block, coalesced); "staged rows, 4 pixels a lane" census_words' (a tile
+# "diagonal boxes" right_disparity's (a block's rectangles of 32 planes
+# staged by cp.async, each thread walking its right pixel's diagonal there
+# with a packed key a plane) and "scans in registers" nearest_valid_lohi's
+# (each line's fills as scans over positions held in registers, lo and hi
+# written once; axis 0 in tiles of 32 columns by 64 rows, the carries from
+# a sweep over valid); "staged rows, 4 pixels a lane" census_words' (a tile
 # staged with its replicated border, compares unrolled with constant bit
 # positions, a 16-byte store a word plane) and "lanes over x, staged span"
 # cost_volume's (a warp's lanes on consecutive pixels, runs of 16
@@ -165,8 +172,8 @@ SLICE4_KERNELS = {
 # stores); every other kernel keeps the design it was first ported with
 DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring",
            "shift_gather": "row grid", "wta_stats_from_duals": "staged pixels",
-           "speckle_counts": "column counts",
-           "nearest_valid_lohi": "lo as scratch, column tiles",
+           "speckle_counts": "column counts", "right_disparity": "diagonal boxes",
+           "nearest_valid_lohi": "scans in registers",
            "census_words": "staged rows, 4 pixels a lane",
            "cost_volume": "lanes over x, staged span"}
 # lines past the 8192 that nearest_valid_lohi once refused: shape, axis
@@ -864,9 +871,13 @@ def script_phases(torch, card: str):
     return rows
 
 
-def launch_label(kname: str, a) -> str:
+def launch_label(kname: str, a, kw) -> str:
     """A redesigned kernel's launch by its shape and the arguments that
     choose its work."""
+    if kname == "right_disparity":
+        return f"{tuple(a[0].shape)} {str(a[0].dtype).removeprefix('torch.')}"
+    if kname == "nearest_valid_lohi":
+        return f"{tuple(a[0].shape)} axis {kw.get('axis', a[3] if len(a) > 3 else 1)}"
     if kname == "census_words":
         return f"{tuple(a[0].shape)} {a[1]}x{a[2]}"
     if kname == "cost_volume":
@@ -887,12 +898,16 @@ def seeded_cost_launch(torch, sgm_cuda):
 
 def ablations(torch, kname: str, a, label: str):
     """The device time of each ablation of the shipping census_words (at
-    5x5) or cost_volume (at nw = 1) kernel on one recorded launch's inputs
-    (``bench_cuda.census_words_ablations``, ``cost_volume_ablations``),
-    each defined one exact against its plain version; None for another
-    launch."""
+    5x5), cost_volume (at nw = 1) or right_disparity kernel on one recorded
+    launch's inputs (``bench_cuda.census_words_ablations``,
+    ``cost_volume_ablations``, ``right_disparity_ablations``), each defined
+    one exact against its plain version; None for another launch."""
     from stereovision_tpu_torch.ops import bench_cuda
 
+    if kname == "right_disparity":
+        return {form: device_ms(lambda form=form: bench_cuda.right_disparity_ablations(
+                    *a[:1], form, *a[1:2]), f"{form} at {label}")
+                for form in bench_cuda.RDISP_ABLATIONS}
     if kname == "census_words" and tuple(a[1:3]) == (5, 5):
         fn, plain, forms, args = (bench_cuda.census_words_ablations,
                                   bench_cuda.census_words_ablations_plain,
@@ -920,16 +935,19 @@ def redesign_phase(torch, card: str, calls):
     on the production frame's recorded launches (wrapper name → [(args,
     kwargs)]; each distinct launch once, see :func:`launch_label`): both
     exact against the plain version, then timed in turns (earlier, new,
-    new, earlier; events and the device alone), census_words and
-    cost_volume also with a part taken out (:func:`ablations`); and
-    ``nearest_valid_lohi`` on lines past 8192 (``LONG_LINES``), exact.
-    Returns {wrapper name: {launch: the turns' (ms, device_ms) by design,
-    the bound and the ablations' device_ms}}."""
+    new, earlier; events and the device alone), census_words,
+    cost_volume and right_disparity also with a part taken out
+    (:func:`ablations`); and ``nearest_valid_lohi`` on lines past 8192
+    (``LONG_LINES``), exact. Returns {wrapper name: {launch: the turns'
+    (ms, device_ms) by design, the bound and the ablations' device_ms}}."""
     from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
 
     earlier = {
         "wta_stats_from_duals": lambda hf, hb, d_valid=None: bench_cuda.wta_stats_variants(
             hf, hb, "base", d_valid),
+        "right_disparity": lambda s, d_valid=None: bench_cuda.right_disparity_variants(
+            s, "in_place", d_valid),
+        "nearest_valid_lohi": bench_cuda.nearest_valid_lohi_chunks,
         "speckle_counts": bench_cuda.speckle_counts_direct,
         "census_words": bench_cuda.census_words_first,
         "cost_volume": bench_cuda.cost_volume_first,
@@ -939,7 +957,7 @@ def redesign_phase(torch, card: str, calls):
         forms = {"earlier": earlier[kname], "new": getattr(sgm_cuda, kname)}
         table[kname] = {}
         for a, kw in kcalls:
-            label = launch_label(kname, a)
+            label = launch_label(kname, a, kw)
             if label in table[kname]:
                 continue
             want = plain_of(sgm_cuda, kname)(*a, **kw)
@@ -1206,9 +1224,13 @@ def main() -> int:
                            "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
     next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
-    redesigned = {k: prod[k] for k in ("census_words", "cost_volume",
-                                        "wta_stats_from_duals", "speckle_counts")}
+    redesigned = {k: prod[k] for k in ("census_words", "cost_volume", "wta_stats_from_duals",
+                                        "speckle_counts", "right_disparity",
+                                        "nearest_valid_lohi")}
     redesigned["cost_volume"] = redesigned["cost_volume"] + [seeded_cost_launch(torch, sgm_cuda)]
+    # the full search with the LR check: int16 at (720, 1280, 320)
+    redesigned["right_disparity"] = (redesigned["right_disparity"]
+                                     + recorded["full_lr_on"]["right_disparity"])
     del recorded, prod
     torch.cuda.empty_cache()
     chain_rows, host = parallel_phases(torch, card)

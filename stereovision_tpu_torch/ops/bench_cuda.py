@@ -23,17 +23,24 @@ package's four TPU measurement scripts, each beside its plain version.
   disparities a thread), timed beside the shipping kernels, and
   :func:`census_words_ablations` / :func:`cost_volume_ablations`: the
   shipping kernels with one part taken out (no TPU counterpart).
+- :func:`right_disparity_ablations`: the shipping ``right_disparity``
+  (diagonal boxes) with its staging or its walk taken out (no TPU
+  counterpart).
 - :func:`right_disparity_variants` ← ``scripts/bench_rdisp.py:84``:
-  ``right_disparity`` read in place, from a (D, H, W) copy, and through a
-  band staged in shared memory (``csrc/right_disparity.cu``).
+  ``right_disparity`` read in place (its first design), from a (D, H, W)
+  copy, through a band staged in shared memory, and as the shipping
+  diagonal boxes (``csrc/right_disparity.cu``).
+- :func:`nearest_valid_lohi_chunks`: ``nearest_valid_lohi``'s earlier
+  design (chunk walks, ``csrc/nearest_lohi.cu``), timed beside the
+  shipping scans (no TPU counterpart).
 
 The variant families and the ablations are compile-time variants of the
 shipping kernels, built into libraries of their own (``_build.VARIANTS``); the
-variant named ``in_place`` is the shipping kernel itself, ``shipping`` and
-``base`` the earlier designs of ``aggregate_dual`` and
-``wta_stats_from_duals``. No engine path launches any of these: they are
-what the scripts of ``stereovision_tpu_torch.scripts`` and ``chip_smoke.py``
-time. As in :mod:`.sgm_cuda`, a wrapper
+variant named ``boxes`` is the shipping ``right_disparity`` kernel itself,
+``in_place``, ``shipping`` and ``base`` the earlier designs of
+``right_disparity``, ``aggregate_dual`` and ``wta_stats_from_duals``. No
+engine path launches any of these: they are what the scripts of
+``stereovision_tpu_torch.scripts`` and ``chip_smoke.py`` time. As in :mod:`.sgm_cuda`, a wrapper
 sends a CPU tensor to its plain version and launches its kernel on a CUDA
 tensor (no fallback), and adds one to its count in
 ``sgm_cuda.launch_counts()`` at each launch.
@@ -376,7 +383,9 @@ def wta_stats_variants(hf: torch.Tensor, hb: torch.Tensor, variant: str,
 # right_disparity, variants (bench_rdisp)
 # ---------------------------------------------------------------------------
 
-RDISP_VARIANTS = {"in_place": 0, "transposed": 1, "staged": 2}
+# variant → csrc/right_disparity.cu's variant code: in_place is the first
+# design, boxes the shipping kernel (sgm_cuda.right_disparity_design)
+RDISP_VARIANTS = {"in_place": 0, "transposed": 1, "staged": 2, "boxes": 3}
 
 
 def right_disparity_variants_plain(s: torch.Tensor, variant: str,
@@ -393,7 +402,8 @@ def right_disparity_variants(s: torch.Tensor, variant: str,
                              d_valid: int | None = None) -> torch.Tensor:
     """The (H, W, D) summed volume (int8 or int16; for ``transposed`` its
     (D, H, W) copy) → (H, W) int32 right-view disparities, the same
-    function in every variant of :data:`RDISP_VARIANTS`; D ≤ 1024."""
+    function in every variant of :data:`RDISP_VARIANTS`; D ≤ 1024. ``boxes``
+    stages as the shipping kernel does (``sgm_cuda.right_disparity_design``)."""
     if variant not in RDISP_VARIANTS:
         raise ValueError(f"unknown right_disparity variant {variant!r}: {tuple(RDISP_VARIANTS)}")
     if s.ndim != 3:
@@ -403,13 +413,44 @@ def right_disparity_variants(s: torch.Tensor, variant: str,
     if s.device.type == "cpu":
         return right_disparity_variants_plain(s, variant, d_valid)
     sgm_cuda._check_planes("right_disparity_variants", D)
+    out = _rdisp_variant_launch(s, H, W, D, d_valid, RDISP_VARIANTS[variant])
+    _launches["right_disparity_variants"] += 1
+    return out
+
+
+def _rdisp_variant_launch(s: torch.Tensor, H: int, W: int, D: int, d_valid: int, code: int):
+    """Launch variant ``code`` of ``csrc/right_disparity.cu`` (an int8 or
+    int16 volume, checked; the shipping kernel's staging for the boxes
+    variant and its ablations) into a new (H, W) int32 map."""
     if s.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"s must be int8 or int16, got {s.dtype}")
     _check(s, "s", s.dtype, 3)
     out = torch.empty((H, W), dtype=torch.int32, device=s.device)
-    _launch("right_disparity_variants", s.device, s.data_ptr(), out.data_ptr(), H, W, D, d_valid,
-            s.element_size(), RDISP_VARIANTS[variant])
-    _launches["right_disparity_variants"] += 1
+    _launch("right_disparity_variants", s.device, s.data_ptr(), out.data_ptr(),
+            *sgm_cuda._rdisp_args(H, W, D, d_valid, s.element_size()), code)
+    return out
+
+
+# form → csrc/right_disparity.cu's variant code of the ablation
+RDISP_ABLATIONS = {"stage_only": 4, "reduce_only": 5}
+
+
+def right_disparity_ablations(s: torch.Tensor, form: str, d_valid: int | None = None):
+    """The shipping ``right_disparity`` kernel with one part taken out, to
+    say which part holds its time (a key of :data:`RDISP_ABLATIONS`):
+    ``stage_only`` stages each block's rectangles and walks none,
+    ``reduce_only`` walks whatever shared memory holds, nothing staged.
+    The staging is the shipping kernel's (``sgm_cuda.right_disparity_design``).
+    (H, W, D) int8 or int16 → an (H, W) int32 map with no defined values;
+    on the CPU, None."""
+    if form not in RDISP_ABLATIONS:
+        raise ValueError(f"unknown ablation {form!r}: {tuple(RDISP_ABLATIONS)}")
+    H, W, D = s.shape
+    d_valid = _check_d_valid(D, d_valid)
+    if s.device.type == "cpu":
+        return None
+    out = _rdisp_variant_launch(s, H, W, D, d_valid, RDISP_ABLATIONS[form])
+    _launches["right_disparity_ablations"] += 1
     return out
 
 
@@ -432,6 +473,35 @@ def speckle_counts_direct(dv: torch.Tensor, k: int, r: float, nbins: int) -> tor
             nbins)
     _launches["speckle_counts_direct"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# nearest_valid_lohi, the earlier design
+# ---------------------------------------------------------------------------
+
+
+def nearest_valid_lohi_chunks(disp: torch.Tensor, valid: torch.Tensor, d_up: torch.Tensor,
+                              axis: int = 1):
+    """``sgm_cuda.nearest_valid_lohi`` through its earlier design (a
+    thread a chunk of a line, the left values parked in ``lo`` by a forward
+    walk and read back by a backward one; ``csrc/nearest_lohi.cu``'s
+    ``svt_nearest_valid_lohi_chunks``). The same function: its plain
+    version is ``sgm_cuda.nearest_valid_lohi_plain``."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if disp.device.type == "cpu":
+        return sgm_cuda.nearest_valid_lohi_plain(disp, valid, d_up, axis)
+    _check(disp, "disp", torch.float32, 2)
+    _check(valid, "valid", torch.bool, 2)
+    _check(d_up, "d_up", torch.float32, 2)
+    if not disp.shape == valid.shape == d_up.shape:
+        raise ValueError("disp, valid and d_up must have one shape")
+    H, W = disp.shape
+    lo, hi = torch.empty_like(disp), torch.empty_like(disp)
+    _launch("nearest_lohi_chunks", disp.device, disp.data_ptr(), valid.data_ptr(),
+            d_up.data_ptr(), lo.data_ptr(), hi.data_ptr(), H, W, axis)
+    _launches["nearest_valid_lohi_chunks"] += 1
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -570,7 +640,7 @@ def cost_volume_ablations(cl: torch.Tensor, cr: torch.Tensor, num_disparities: i
 KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, aggregate_staged_variants,
                    wta_stats_variants, right_disparity_variants, speckle_counts_direct,
                    census_words_first, cost_volume_first, census_words_ablations,
-                   cost_volume_ablations)
+                   cost_volume_ablations, nearest_valid_lohi_chunks, right_disparity_ablations)
 COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS)
 sgm_cuda.register({
     "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L, _I, _I, _I, _P)),
@@ -580,7 +650,7 @@ sgm_cuda.register({
                                   (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
                                   "aggregate_variants"),
     "wta_stats_variants": ("svt_wta_stats_variant", (_P,) * 7 + (_I,) * 5 + (_P,)),
-    "right_disparity_variants": ("svt_right_disparity_variant", (_P, _P) + (_I,) * 6 + (_P,)),
+    "right_disparity_variants": ("svt_right_disparity_variant", (_P, _P) + (_I,) * 7 + (_P,)),
     "speckle_direct": ("svt_speckle_counts_direct", (_P, _P, _I, _I, _I, _F, _I, _P),
                        "speckle"),
     "census_first": ("svt_census_words_first", (_P, _P, _I, _I, _I, _I, _P), "census"),
@@ -589,4 +659,6 @@ sgm_cuda.register({
                          "census_variants"),
     "cost_ablations": ("svt_cost_volume_ablation", (_P, _P, _P) + (_I,) * 8 + (_P,),
                        "cost_variants"),
+    "nearest_lohi_chunks": ("svt_nearest_valid_lohi_chunks", (_P,) * 5 + (_I,) * 3 + (_P,),
+                            "nearest_lohi"),
 }, COUNTS)

@@ -62,9 +62,9 @@ _SIGNATURES = {
     "speckle": ("svt_speckle_counts", (_P, _P, _I, _I, _I, _F, _I, _P)),
     "speckle_columns": ("svt_speckle_columns", (_I, _I), "speckle"),
     "wta_stats": ("svt_wta_stats_from_duals", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "right_disparity": ("svt_right_disparity", (_P, _P, _I, _I, _I, _I, _I, _P)),
+    "right_disparity": ("svt_right_disparity", (_P, _P) + (_I,) * 6 + (_P,)),
     "shift_gather": ("svt_shift_gather", (_P, _P, _P, _I, _I, _I, _I, _P)),
-    "nearest_lohi": ("svt_nearest_valid_lohi", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "nearest_lohi": ("svt_nearest_valid_lohi", (_P,) * 5 + (_I,) * 4 + (_P,)),
     "wta": ("svt_wta", (_P, _P, _P, _P, _P, _P, _L, _I, _P)),
 }
 _fns: dict = {}
@@ -588,22 +588,61 @@ def right_disparity_plain(s: torch.Tensor, d_valid: int | None = None) -> torch.
     return idx
 
 
+_RDISP_U = 128  # right pixels a block, a thread each
+_RDISP_SPAN = 48 * 1024  # shared bytes of a block that stages its whole span, at most
+
+
+def _span_ways(D: int, itemsize: int) -> int:
+    """The most distinct words that 32 threads on consecutive right pixels
+    put on one shared-memory bank when each reads its diagonal in a span
+    whose image columns are D elements apart, whatever the span's start."""
+    return max(_bank_ways([(o + j * D * itemsize) // 4 for j in range(32)], 30)
+               for o in range(4))
+
+
+def right_disparity_design(W: int, D: int, itemsize: int, d_valid: int) -> str:
+    """How :func:`right_disparity`'s kernel stages the volume on a card. A
+    block owns 128 right pixels of a row, a thread each, and walks the
+    planes in tiles of 32. It stages either its whole span (``"span"``:
+    every plane of the 128 + min(d_valid, W) − 1 image columns its pixels
+    reach, where that fits 48 KB of shared memory and the D-element pitch
+    puts at most 2 of a warp's reads on a bank, :func:`_span_ways`) or the
+    rectangles of 32 planes one after the other (``"tiles"``, each lane
+    walking its row's words from its own start: a warp's reads on 32
+    banks). See ``csrc/right_disparity.cu``."""
+    cols = min(W, _RDISP_U + min(d_valid, W) - 1)
+    span = (cols * D * itemsize + 31) // 16 * 16
+    fits = span <= _RDISP_SPAN and _span_ways(D, itemsize) <= 2
+    return "span" if fits else "tiles"
+
+
+@functools.lru_cache(maxsize=None)
+def _rdisp_args(H: int, W: int, D: int, d_valid: int, itemsize: int) -> tuple:
+    """The arguments of ``csrc/right_disparity.cu``'s entries after the two
+    pointers: the shape, ``itemsize`` and 1 for tiles or 0 for the span
+    (:func:`right_disparity_design`), made once a shape."""
+    return H, W, D, d_valid, itemsize, int(
+        right_disparity_design(W, D, itemsize, d_valid) == "tiles")
+
+
 def right_disparity(s: torch.Tensor, d_valid: int | None = None) -> torch.Tensor:
     """(H, W, D) summed volume (int8 or int16, see :func:`sum_wta`) → (H, W)
-    int32 right-view disparity indices (see :func:`right_disparity_plain`)."""
-    D = s.shape[-1]
+    int32 right-view disparity indices (see :func:`right_disparity_plain`,
+    and :func:`right_disparity_design` for the kernel's blocks)."""
+    shape, dev = s.shape, s.device
+    D = shape[-1]
     d_valid = D if d_valid is None else d_valid
     if not 0 < d_valid <= D:
         raise ValueError(f"d_valid must be in (0, {D}], got {d_valid}")
-    if s.device.type == "cpu":
+    if dev.type == "cpu":
         return right_disparity_plain(s, d_valid)
     if s.dtype not in (torch.int8, torch.int16):
         raise TypeError(f"s must be int8 or int16, got {s.dtype}")
     _check(s, "s", s.dtype, 3)
-    H, W, _ = s.shape
-    out = torch.empty((H, W), dtype=torch.int32, device=s.device)
-    _launch("right_disparity", s.device, s.data_ptr(), out.data_ptr(), H, W, D, d_valid,
-            s.element_size())
+    H, W, _ = shape
+    out = torch.empty((H, W), dtype=torch.int32, device=dev)
+    _launch("right_disparity", dev, s.data_ptr(), out.data_ptr(),
+            *_rdisp_args(H, W, D, d_valid, s.element_size()))
     _launches["right_disparity"] += 1
     return out
 
@@ -727,25 +766,50 @@ def nearest_valid_lohi_plain(disp: torch.Tensor, valid: torch.Tensor, d_up: torc
     return torch.minimum(lv, rv), torch.maximum(lv, rv)
 
 
+_LOHI_THREADS = 512  # axis 1: a block at most
+_LOHI_COL_THREADS = 256  # axis 0: a block of 32 columns, 8 warps of 8 rows: 64 rows a tile
+
+
+def nearest_lohi_design(H: int, W: int, axis: int) -> int:
+    """The threads of a block that :func:`nearest_valid_lohi` launches on a
+    card for an (H, W) map along ``axis`` (a multiple of 32). Axis 1: a
+    block a row, 4 consecutive positions a thread, up to 512 threads: the
+    whole row a tile up to 2048 positions; longer rows loop over tiles.
+    Axis 0: 32 columns a block (a lane each), 8 rows a thread, up to 256
+    threads: tiles of 64 rows, the grid over the rows too."""
+    if axis == 1:
+        return min(_LOHI_THREADS, -(-W // 128) * 32)
+    return min(_LOHI_COL_THREADS, -(-H // 8) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _lohi_args(H: int, W: int, axis: int) -> tuple:
+    """``csrc/nearest_lohi.cu``'s arguments after the five pointers (the
+    shape, the axis, :func:`nearest_lohi_design`), made once a shape."""
+    return H, W, axis, nearest_lohi_design(H, W, axis)
+
+
 def nearest_valid_lohi(disp: torch.Tensor, valid: torch.Tensor, d_up: torch.Tensor,
                        axis: int = 1):
     """(H, W) float32 disparity, bool validity and float32 fallback →
     (lo, hi) float32 along the rows (``axis=1``, the reference's call) or
     the columns (``axis=0``, the reference's call on the transpose); see
-    :func:`nearest_valid_lohi_plain`."""
+    :func:`nearest_valid_lohi_plain`, and :func:`nearest_lohi_design` for
+    the kernel's blocks."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    if disp.device.type == "cpu":
+    dev = disp.device
+    if dev.type == "cpu":
         return nearest_valid_lohi_plain(disp, valid, d_up, axis)
     _check(disp, "disp", torch.float32, 2)
     _check(valid, "valid", torch.bool, 2)
     _check(d_up, "d_up", torch.float32, 2)
-    if not disp.shape == valid.shape == d_up.shape:
+    shape = disp.shape
+    if not shape == valid.shape == d_up.shape:
         raise ValueError("disp, valid and d_up must have one shape")
-    H, W = disp.shape
     lo, hi = torch.empty_like(disp), torch.empty_like(disp)
-    _launch("nearest_lohi", disp.device, disp.data_ptr(), valid.data_ptr(), d_up.data_ptr(),
-            lo.data_ptr(), hi.data_ptr(), H, W, axis)
+    _launch("nearest_lohi", dev, disp.data_ptr(), valid.data_ptr(), d_up.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), *_lohi_args(*shape, axis))
     _launches["nearest_valid_lohi"] += 1
     return lo, hi
 

@@ -1,4 +1,4 @@
-"""``right_disparity`` read three ways on the card: the counterpart of
+"""``right_disparity`` read four ways on the card: the counterpart of
 ``scripts/bench_rdisp.py``.
 
     python -m stereovision_tpu_torch.scripts.bench_rdisp [D ...]   (default: 128 320)
@@ -6,16 +6,20 @@
 Replaces the TPU kernel of ``scripts/bench_rdisp.py:84`` (``make_shear``,
 :42-93), a log-shear of the summed volume s (H, W, D) int16 in VMEM that
 reads dR(u) = argmin_d s[y, u + d, d] with no (D, H, W) copy, against the
-TPU pipeline's copy + ``_rdisp_kernel`` (the script's ``cur``). The three
+TPU pipeline's copy + ``_rdisp_kernel`` (the script's ``cur``). The four
 variants of :func:`bench_cuda.right_disparity_variants`
 (``ops/csrc/right_disparity.cu``) compute the same function:
 
-- ``in_place``: the shipping kernel, reading the diagonal of (H, W, D);
+- ``in_place``: the first design, reading the diagonal of
+  (H, W, D) in place, a thread a right pixel;
 - ``transposed``: a kernel reading a (D, H, W) copy, coalesced across u,
   timed alone ("rdisp alone" in the script) and as ``cur``, with the
   ``permute(2, 0, 1).contiguous()`` that makes the copy;
 - ``staged``: the counterpart of the log-shear, each block staging its
-  band of the volume in shared memory with coalesced loads.
+  band of the volume in shared memory with coalesced loads;
+- ``boxes``: the shipping kernel (``sgm_cuda.right_disparity``), each
+  block staging rectangles of 32 planes with 16-byte ``cp.async`` and
+  each thread walking its right pixel's diagonal there.
 
 Inputs: the script's seeded s (720, 1280, D) int16 in [0, 480), at the
 script's D=128 and the engine's D=320. Bound on the card: bytes, the band
@@ -40,7 +44,7 @@ from stereovision_tpu_torch.utils.backend import resolve_device
 H, W = 720, 1280
 DS = (128, 320)
 N, WARMUP = 20, 3
-VARIANTS = ("in_place", "transposed", "cur", "staged")
+VARIANTS = ("in_place", "transposed", "cur", "staged", "boxes")
 
 
 def make_sum(device, D: int, seed: int = 0) -> torch.Tensor:
@@ -80,6 +84,7 @@ def run(ds=DS, variants=VARIANTS, device="cuda", n: int = N, warmup: int = WARMU
             "cur": lambda: bench_cuda.right_disparity_variants(
                 s.permute(2, 0, 1).contiguous(), "transposed"),
             "staged": lambda: bench_cuda.right_disparity_variants(s, "staged"),
+            "boxes": lambda: bench_cuda.right_disparity_variants(s, "boxes"),
         }
         for v in variants:
             row = measure(f"{v} D={D}", "right_disparity_variants", calls[v],

@@ -343,6 +343,98 @@ def test_cost_volume_first_on_the_cpu_is_the_plain_version(min_d):
     assert sgm_cuda.launch_counts() == before
 
 
+@pytest.mark.parametrize("axis", [0, 1])
+def test_earlier_rdisp_and_lohi_designs_on_the_cpu_are_the_plain_versions(axis):
+    """``right_disparity``'s ``in_place`` variant and
+    ``nearest_valid_lohi_chunks`` on CPU tensors are the plain versions and
+    launch nothing."""
+    s = torch.from_numpy(RNG.integers(-128, 127, size=(9, 70, 40)).astype(np.int8))
+    d = torch.from_numpy(RNG.uniform(0, 64, size=(37, 150)).astype(np.float32))
+    v = torch.from_numpy(RNG.uniform(size=(37, 150)) < 0.05)
+    up = torch.from_numpy(RNG.uniform(0, 64, size=(37, 150)).astype(np.float32))
+    before = sgm_cuda.launch_counts()
+    assert torch.equal(bench_cuda.right_disparity_variants(s, "in_place", 40 - 7 * axis),
+                       sgm_cuda.right_disparity_plain(s, 40 - 7 * axis))
+    got = bench_cuda.nearest_valid_lohi_chunks(d, v, up, axis)
+    want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sgm_cuda.launch_counts() == before
+    with pytest.raises(ValueError):
+        bench_cuda.nearest_valid_lohi_chunks(d, v, up, 2)
+
+
+@pytest.mark.parametrize("H,W,D,itemsize,d_valid,design", [
+    (720, 1280, 32, 1, 32, "tiles"),      # the refine's LR check
+    (240, 426, 107, 1, 107, "span"),      # the coarse search's
+    (720, 1280, 320, 2, 320, "tiles"),    # the full search's, int16
+    (75, 426, 107, 1, 107, "span"),       # a sharded slab's coarse search
+    (11, 140, 107, 2, 107, "span"),
+    (11, 140, 40, 2, 23, "tiles"),
+    (13, 426, 107, 2, 107, "tiles"),      # 234 columns of 214 bytes: past 48 KB
+    (5, 140, 1024, 2, 1000, "tiles"),
+])
+def test_right_disparity_design(H, W, D, itemsize, d_valid, design):
+    """Blocks of 128 right pixels; the whole span staged where it fits 48 KB
+    of shared memory (the bytes ``csrc/right_disparity.cu`` takes for it)
+    and its pitch of D elements puts at most 2 of a warp's 32 reads on one
+    bank, tiles of 32 planes elsewhere. The C entries take the shape, the
+    item size and the choice, once a shape."""
+    staging = sgm_cuda.right_disparity_design(W, D, itemsize, d_valid)
+    assert staging == design
+    span = (min(W, 128 + min(d_valid, W) - 1) * D * itemsize + 31) // 16 * 16
+    ways = sgm_cuda._span_ways(D, itemsize)
+    assert (staging == "span") == (span <= 48 * 1024 and ways <= 2)
+    args = sgm_cuda._rdisp_args(H, W, D, d_valid, itemsize)
+    assert args == (H, W, D, d_valid, itemsize, staging == "tiles")
+    assert sgm_cuda._rdisp_args(H, W, D, d_valid, itemsize) is args
+
+
+@pytest.mark.parametrize("D,itemsize,ways", [(107, 1, 2), (107, 2, 2), (33, 1, 2), (1, 1, 1),
+                                             (32, 1, 8), (40, 2, 4), (320, 2, 32)])
+def test_right_disparity_span_ways(D, itemsize, ways):
+    """32 threads on consecutive right pixels read cells D elements apart:
+    odd pitches spread them, a pitch of 32 bytes puts 8 on a bank."""
+    assert sgm_cuda._span_ways(D, itemsize) == ways
+
+
+@pytest.mark.parametrize("H,W,axis,design", [
+    (720, 1280, 1, 320), (720, 1280, 0, 256),  # the production fill
+    (240, 426, 1, 128), (37, 1283, 1, 352),
+    (4, 10000, 1, 512), (9000, 6, 0, 256),     # lines past one tile
+    (37, 1, 1, 32), (1, 37, 0, 32), (20, 41, 0, 96),
+])
+def test_nearest_lohi_design(H, W, axis, design):
+    """Axis 1: a block a row, 4 positions a thread, its tile the whole row
+    up to 2048 positions (at most 512 threads, less than a warp's positions
+    past the row). Axis 0: a block of 32 columns and tiles of 8 rows a
+    warp, at most 8 warps (64 rows), fewer where the map has fewer rows.
+    The C entry takes the shape, the axis and the threads, once a shape."""
+    threads = sgm_cuda.nearest_lohi_design(H, W, axis)
+    assert threads == design
+    assert threads % 32 == 0 and 32 <= threads <= 512
+    if axis == 1:
+        tile = threads * 4
+        assert (tile >= W) == (W <= 2048)
+        assert tile - W < 32 * 4 or tile < W
+    else:
+        assert threads // 32 * 8 == min(64, -(-H // 8) * 8)
+    assert sgm_cuda._lohi_args(H, W, axis) == (H, W, axis, threads)
+
+
+def test_right_disparity_ablations_plain_and_arguments():
+    """The ablations define no output (None on the CPU, no launch) and
+    refuse an unknown form or d_valid."""
+    s = torch.zeros((3, 20, 8), dtype=torch.int8)
+    before = sgm_cuda.launch_counts()
+    assert all(bench_cuda.right_disparity_ablations(s, form) is None
+               for form in bench_cuda.RDISP_ABLATIONS)
+    assert sgm_cuda.launch_counts() == before
+    with pytest.raises(ValueError):
+        bench_cuda.right_disparity_ablations(s, "no_redux")
+    with pytest.raises(ValueError):
+        bench_cuda.right_disparity_ablations(s, "stage_only", 9)
+
+
 def test_census_and_cost_ablations_plain_and_arguments():
     img = torch.from_numpy(_image(9, 21))
     assert torch.equal(bench_cuda.census_words_ablations(img, "stage_only"),
@@ -572,19 +664,29 @@ def test_census_and_cost_ablations_kernel(cuda, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,min_d", [(32, 0), (107, 4), (320, -3)])
 def test_first_designs_equal_the_shipping_kernels(cuda, D, min_d):
-    """bench_cuda's first-design census and cost kernels, counted apart,
-    give the shipping kernels' words and volumes."""
+    """bench_cuda's first-design census and cost kernels, and the earlier
+    designs of right_disparity (the ``in_place`` variant, on the cost
+    volume as an int8 sum) and nearest_valid_lohi (chunk walks, both axes),
+    counted apart, give the shipping kernels' outputs."""
     img = torch.from_numpy(_image(37, 426)).to(cuda)
     before = sgm_cuda.launch_counts()
     cl = bench_cuda.census_words_first(img)
     assert torch.equal(cl, sgm_cuda.census_words(img))
     cr = sgm_cuda.census_words(img.roll(5, 1).contiguous())
-    assert torch.equal(bench_cuda.cost_volume_first(cl, cr, D, min_d, 24),
-                       sgm_cuda.cost_volume(cl, cr, D, min_d, 24))
+    cost = bench_cuda.cost_volume_first(cl, cr, D, min_d, 24)
+    assert torch.equal(cost, sgm_cuda.cost_volume(cl, cr, D, min_d, 24))
+    assert torch.equal(bench_cuda.right_disparity_variants(cost, "in_place", D - min_d % 7),
+                       sgm_cuda.right_disparity(cost, D - min_d % 7))
+    valid = img > 200
+    for axis in (0, 1):
+        got = bench_cuda.nearest_valid_lohi_chunks(img, valid, img * 0.5, axis)
+        want = sgm_cuda.nearest_valid_lohi(img, valid, img * 0.5, axis)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     torch.cuda.synchronize()
     after = sgm_cuda.launch_counts()
-    assert after["census_words_first"] == before["census_words_first"] + 1
-    assert after["cost_volume_first"] == before["cost_volume_first"] + 1
+    for name, n in (("census_words_first", 1), ("cost_volume_first", 1),
+                    ("right_disparity_variants", 1), ("nearest_valid_lohi_chunks", 2)):
+        assert after[name] == before[name] + n
 
 
 @pytest.mark.cuda
@@ -723,15 +825,50 @@ def test_wta_stats_from_duals_kernel_int16(cuda, D, d_valid):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+# dtype, D, d_valid, (H, W), values ("wide": all of int8 or 0..599; "narrow":
+# 0..3, ties everywhere): W < D at W = 140; W not a multiple of the block's
+# 128 pixels; each staging form (the span, 16-byte tiles, element tiles at
+# D·itemsize not a multiple of 16); more than 65535 rows, in the span and
+# in tiles
+_RDISP_CASES = [
+    (torch.int8, 32, 32, (11, 140), "wide"), (torch.int16, 107, 107, (11, 140), "wide"),
+    (torch.int16, 40, 23, (11, 140), "wide"), (torch.int8, 320, 320, (11, 140), "wide"),
+    (torch.int16, 320, 320, (11, 140), "wide"), (torch.int16, 1024, 1000, (5, 140), "wide"),
+    (torch.int8, 32, 32, (133, 300), "wide"), (torch.int8, 32, 32, (133, 300), "narrow"),
+    (torch.int8, 107, 90, (13, 426), "wide"), (torch.int16, 320, 320, (270, 260), "wide"),
+    (torch.int16, 320, 300, (9, 600), "narrow"), (torch.int16, 107, 107, (11, 300), "wide"),
+    (torch.int8, 1, 1, (3, 40), "wide"), (torch.int8, 2, 2, (70000, 3), "wide"),
+    (torch.int8, 32, 32, (65600, 5), "narrow"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,d_valid", [(torch.int8, 32, 32), (torch.int16, 107, 107),
-                                             (torch.int16, 40, 23), (torch.int8, 320, 320)])
-def test_right_disparity_kernel(cuda, dtype, D, d_valid):
-    lo, hi = (-128, 127) if dtype == torch.int8 else (0, 600)
-    s = torch.randint(lo, hi, (11, 140, D), dtype=dtype).to(cuda)
+@pytest.mark.parametrize("dtype,D,d_valid,shape,values", _RDISP_CASES)
+def test_right_disparity_kernel(cuda, dtype, D, d_valid, shape, values):
+    lo, hi = (0, 4) if values == "narrow" else (-128, 127) if dtype == torch.int8 else (0, 600)
+    s = torch.randint(lo, hi, (*shape, D), dtype=dtype).to(cuda)
+    before = sgm_cuda.launch_counts()["right_disparity"]
     got = sgm_cuda.right_disparity(s, d_valid)
     torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["right_disparity"] == before + 1
     assert torch.equal(got, sgm_cuda.right_disparity_plain(s, d_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,W", [(torch.int8, 32, 300), (torch.int8, 107, 426),
+                                       (torch.int16, 320, 260), (torch.int16, 107, 300)])
+def test_right_disparity_ablations_kernel(cuda, dtype, D, W):
+    """Each ablation launches (counted apart) in each staging form: the
+    span, 16-byte tiles, element tiles."""
+    s = torch.randint(0, 100, (7, W, D), dtype=dtype).to(cuda)
+    before = sgm_cuda.launch_counts()
+    for form in bench_cuda.RDISP_ABLATIONS:
+        out = bench_cuda.right_disparity_ablations(s, form)
+        assert out.shape == (7, W) and out.dtype == torch.int32
+    torch.cuda.synchronize()
+    after = sgm_cuda.launch_counts()
+    assert after["right_disparity_ablations"] == before["right_disparity_ablations"] + 2
+    assert after["right_disparity"] == before["right_disparity"]
 
 
 @pytest.mark.cuda
@@ -745,16 +882,30 @@ def test_shift_gather_kernel(cuda, shape, dtype):
     assert torch.equal(got, sgm_cuda.shift_gather_plain(src, off, 40))
 
 
+# (H, W), the share of valid pixels: lines a multiple of the block's tile
+# (1280 = 320·4 along the rows, 768 = 12 tiles of 64 rows down the
+# columns) and not (1500; 1283, not a multiple of 4: scalar loads; 771
+# rows; 41 columns: a last block of 9; 2500 columns: two tiles of a row),
+# lines of length 1, all valid, none valid
+_LOHI_CASES = [((37, 1500), 0.02), ((37, 1280), 0.02), ((37, 1283), 0.02), ((768, 40), 0.02),
+               ((771, 41), 0.02), ((37, 1), 0.3), ((1, 37), 0.3), ((64, 300), 1.0),
+               ((64, 300), 0.0), ((5, 2500), 0.002)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,density", _LOHI_CASES)
 @pytest.mark.parametrize("axis", [0, 1])
-def test_nearest_valid_lohi_kernel(cuda, axis):
-    d = torch.from_numpy(RNG.uniform(0, 64, size=(37, 1500)).astype(np.float32)).to(cuda)
-    v = torch.from_numpy(RNG.uniform(size=(37, 1500)) < 0.02).to(cuda)
-    v[3] = False
-    v[:, 7] = False
-    up = torch.from_numpy(RNG.uniform(0, 64, size=(37, 1500)).astype(np.float32)).to(cuda)
+def test_nearest_valid_lohi_kernel(cuda, axis, shape, density):
+    d = torch.from_numpy(RNG.uniform(0, 64, size=shape).astype(np.float32)).to(cuda)
+    v = torch.from_numpy(RNG.uniform(size=shape) < density).to(cuda)
+    if 0 < density < 1 and min(shape) > 7:
+        v[3] = False
+        v[:, 7] = False
+    up = torch.from_numpy(RNG.uniform(0, 64, size=shape).astype(np.float32)).to(cuda)
+    before = sgm_cuda.launch_counts()["nearest_valid_lohi"]
     got = sgm_cuda.nearest_valid_lohi(d, v, up, axis)
     torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["nearest_valid_lohi"] == before + 1
     want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
