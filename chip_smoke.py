@@ -16,19 +16,24 @@ of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the eleven CUDA sources of ``stereovision_tpu_torch/ops/csrc``
-   from the checkout, and five of them again with their measurement
-   variants and ablations, one nvcc per library, all at once;
+   from the checkout, and six of them again with their measurement
+   variants, earlier designs and ablations, one nvcc per library, all at
+   once;
 3. run one frame of each path recording every kernel launch's inputs, then
    replay each recorded launch against the kernel's plain PyTorch version on
    the same inputs: all must be exact; so must ``wta_stats_from_duals`` on
    seeded int16 volumes (the dtype a census with n_bits + P2 > 127 gives);
+   each full-search frame must call ``sum_wta_fused`` once (emit ``none``
+   with the LR check off, ``hwd`` with it on);
 4. run each path through ``DepthPipeline`` with the launch counts set to 0
    just before and read just after: every kernel of the path must have
-   launched; the result must match the path's plain form (``impl="xla"``) on
+   launched (``sum_wta`` once a full-search frame), the plain
+   ``sgm_cuda.sum_wta`` never; the result must match the path's plain form (``impl="xla"``) on
    the card and recover the synthetic rigs' shifts (a flat rig at 40 px; for
    the production path a background at 40 px and a box at 200 px);
 5. time each path (3 warm-up frames, 20 timed, CUDA events), each kernel's
-   launches of one frame of each path (replayed on their recorded inputs)
+   launches of one frame of each path (replayed on their recorded inputs;
+   ``sum_wta``'s on each full-search frame)
    beside their bound, plain version and (for shift_gather)
    ``torch.gather``, and the stages around them; each kernel's replay, and
    ``torch.gather``'s, is timed twice: with events around 20 calls (host
@@ -38,7 +43,8 @@ of which raises (exit code non-zero, no result line) on failure:
    ``make_mesh(frame=1, tile=4, devices=["cuda:0"] * 4)``: the sweep
    strategy on 2 flat-rig frames, the pipelined one on 4, each recorded
    (every launch replayed against its plain version: exact) and counted
-   (the chain mode must launch T*T times a frame, or (B+T-1)*T times), and
+   (the chain mode must launch T*T times a frame, or (B+T-1)*T times;
+   ``sum_wta`` once a tile and frame), and
    each frame equal bit for bit to the single-device engine on the card;
 7. ``sharded_disparity`` with ``production_preset()`` on the same mesh,
    recorded (every launch replayed against its plain version: exact) and
@@ -74,11 +80,14 @@ of which raises (exit code non-zero, no result line) on failure:
    ``wta_out`` at 720x1280x320 against its plain version, timed beside the
    plain ``aggregate_dir`` launch; then (:func:`redesign_phase`) the
    redesigned ``census_words``, ``cost_volume``, ``wta_stats_from_duals``,
-   ``speckle_counts``, ``right_disparity`` and ``nearest_valid_lohi``
-   against their earlier designs (``bench_cuda.census_words_first``,
+   ``speckle_counts``, ``right_disparity``, ``nearest_valid_lohi`` and
+   ``sum_wta`` against their earlier designs (``bench_cuda.census_words_first``,
    ``bench_cuda.cost_volume_first``, ``bench_wta_variants``' ``base``
    variant, ``bench_cuda.speckle_counts_direct``, ``bench_rdisp``'s
-   ``in_place`` variant and ``bench_cuda.nearest_valid_lohi_chunks``) on
+   ``in_place`` variant, ``bench_cuda.nearest_valid_lohi_chunks`` and
+   ``bench_cuda.sum_wta_first``) on the full search's recorded ``sum_wta``
+   launches (LR on: hwd; LR off: none; int8 at 720x1280x320) and seeded
+   int16 volumes at that shape, and on
    the production frame's recorded launches (census at 720x1280 and
    240x426, 5x5; the refine stack (960, 1280, 32) and the coarse search
    (240, 426, 107); 720x1280 at k=15, nbins=13 and 240x426 at k=15,
@@ -86,8 +95,8 @@ of which raises (exit code non-zero, no result line) on failure:
    the fill's 720x1280 along each axis), one seeded ``cost_volume`` launch
    at (720, 1280, 320) and the LR-on full search's ``right_disparity``
    launch at (720, 1280, 320) int16: equal outputs, timed in turns
-   (earlier, new, new, earlier), the census, cost and right-disparity
-   kernels also with a part taken out (:func:`ablations`), and one ``nearest_valid_lohi``
+   (earlier, new, new, earlier), the census, cost, right-disparity and
+   sum_wta kernels also with a part taken out (:func:`ablations`), and one ``nearest_valid_lohi``
    launch on a line past 8192 on each axis, exact against its plain
    version.
 
@@ -143,11 +152,14 @@ SLICE3_KERNELS = {
     "aggregate_dir": ("aggregate_dir.cu", 595, "aggregate_dir_plain"),
     "wta": ("wta.cu", 1701, "wta_plain"),
 }
+# the full search's own kernel (paths=4: the LR-off and LR-on frames, each
+# exact-engine tile): wrapper → (launch-count name, source, the TPU kernel's
+# pallas_call); its plain version is the wrapper's name + "_plain"
+FULL_KERNELS = {"sum_wta_fused": ("sum_wta", "sum_wta.cu", "scripts/bench_sumwta.py:110")}
 # the measurement kernels (phase 10): launch-count name → (source, the TPU
 # kernel's pallas_call, the row of its script's run that the kernels line
 # reports: the shipping kernel's counterpart at the engine's shape)
 SLICE4_KERNELS = {
-    "sum_wta": ("sum_wta.cu", "scripts/bench_sumwta.py:110", "hwd D={D}"),
     "aggregate_dual_variants": ("aggregate.cu", "scripts/bench_agg_step.py:216", "shipping"),
     "wta_stats_variants": ("wta_stats.cu", "scripts/bench_wta_variants.py:149", "base"),
     "right_disparity_variants": ("right_disparity.cu", "scripts/bench_rdisp.py:84",
@@ -169,8 +181,11 @@ SLICE4_KERNELS = {
 # positions, a 16-byte store a word plane) and "lanes over x, staged span"
 # cost_volume's (a warp's lanes on consecutive pixels, runs of 16
 # disparities, the block's output span staged and written in 16-byte
-# stores); every other kernel keeps the design it was first ported with
+# stores); "staged pixels" is also sum_wta's (wta_stats_from_duals' design
+# over four volumes, the int16 sum leaving through a staged output span);
+# every other kernel keeps the design it was first ported with
 DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring",
+           "sum_wta": "staged pixels",
            "shift_gather": "row grid", "wta_stats_from_duals": "staged pixels",
            "speckle_counts": "column counts", "right_disparity": "diagonal boxes",
            "nearest_valid_lohi": "scans in registers",
@@ -192,7 +207,7 @@ STAGES = {
     "im": ("remap", "resize", "median_blur"),
     "sgm": ("_coarse_disparity", "_window_shifts", "_refine_two_windows",
             "_census_distance", "_speckle_suppress", "_census_fill"),
-    "sgm_cuda": ("st_from_duals", "sum_wta"),
+    "sgm_cuda": ("st_from_duals", "sum_wta_fused"),
 }
 
 
@@ -331,6 +346,13 @@ def work(name, args, kw):
         return 2 * t.numel() * 4, t.numel() * (2 * (2 + 5 * nbins) + 1)
     if name == "nearest_valid_lohi":
         return 17 * t.numel(), 8 * t.numel()
+    if name == "sum_wta_fused":
+        # four volumes read, the int16 sum (but for emit none) and five maps
+        # written; about twelve operations a plane
+        emit = kw.get("emit", args[5] if len(args) > 5 else "hwd")
+        n = t.numel()
+        return (4 * n * t.element_size() + (0 if emit == "none" else 2 * n)
+                + 20 * (n // t.shape[-1]), 12 * n)
     raise KeyError(name)
 
 
@@ -372,6 +394,8 @@ def wrapper_of(sgm_cuda, kname):
 
 
 def plain_of(sgm_cuda, kname):
+    if kname in FULL_KERNELS:
+        return getattr(sgm_cuda, f"{kname}_plain")
     return getattr(sgm_cuda, (KERNELS.get(kname) or SLICE3_KERNELS[kname])[2])
 
 
@@ -394,7 +418,11 @@ def parity(torch, sgm_cuda, calls, what: str) -> float:
             want = plain_of(sgm_cuda, kname)(*fresh(args), **fresh(kw))
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
+            check(len(got) == len(want), f"{kname}: {len(got)} outputs, not {len(want)}")
             for g, w in zip(got, want):
+                if g is None or w is None:  # sum_wta_fused with emit none: no volume
+                    check(g is None and w is None, f"{kname}: an output is missing")
+                    continue
                 check(g.shape == w.shape and g.dtype == w.dtype,
                       f"{kname}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
                 err = (g.double() - w.double()).abs().max().item() if g.numel() else 0.0
@@ -511,6 +539,7 @@ def wrapper_host_us(torch, sgm_cuda, n: int = 1000):
         "speckle_counts": lambda: sgm_cuda.speckle_counts(img, 5, 32.0, 6),
         "nearest_valid_lohi": lambda: sgm_cuda.nearest_valid_lohi(img, valid, img),
         "wta": lambda: sgm_cuda.wta(volf),
+        "sum_wta": lambda: sgm_cuda.sum_wta_fused(vol8, vol8, vol8, vol8, emit="none"),
     }
     for f in forms.values():  # builds and loads each library before the clock
         f()
@@ -576,7 +605,7 @@ def parallel_phases(torch, card: str):
     from stereovision_tpu_torch.ops import sgm_cuda
     from stereovision_tpu_torch.stereo import SGMParams, production_preset, sgm
 
-    names = list(KERNELS) + ["aggregate_dir", "wta"]
+    names = list(KERNELS) + list(FULL_KERNELS) + ["aggregate_dir", "wta"]
     targets = [(sgm_cuda, n) for n in names]
     p = SGMParams(num_disparities=D)
     mesh = parallel.make_mesh(frame=1, tile=TILES, devices=["cuda:0"] * TILES)
@@ -592,7 +621,7 @@ def parallel_phases(torch, card: str):
                       (PIPE_FRAMES + TILES - 1) * TILES),
     }
     must = ("census_words", "cost_volume", "aggregate_dual", "aggregate_dual_chain",
-            "right_disparity", "shift_gather", "speckle_counts")
+            "right_disparity", "shift_gather", "speckle_counts", "sum_wta")
     runs = {}
     errs = {"aggregate_dual_chain": 0.0}
     for sname, (fn, B, chain_launches) in strategies.items():
@@ -609,6 +638,8 @@ def parallel_phases(torch, card: str):
         print(f"launches in one {sname} run ({B} frames, {TILES} tiles): {counts}")
         check(counts["aggregate_dual_chain"] == chain_launches,
               f"{sname}: {counts['aggregate_dual_chain']} chain launches, not {chain_launches}")
+        check(counts["sum_wta"] == B * TILES,
+              f"{sname}: {counts['sum_wta']} sum_wta launches, not one a tile ({B * TILES})")
         for k in must:
             check(counts[k] > 0, f"kernel {k} was not launched by the {sname} strategy")
         check(disp.shape == (B, H, W) and disp.device == mesh.first, f"{sname}: output shape")
@@ -693,11 +724,17 @@ def parallel_phases(torch, card: str):
         return lambda: [fn(*a, **kw) for a, kw in calls]
 
     for sname, (fn, B, counts, _, (nb, ops)) in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         ms = cuda_ms(torch, lambda: fn(lefts[:B], rights[:B], p, mesh), 3) / B
+        own = (torch.cuda.max_memory_allocated() - held) / 1e9
         b_ms, b_by = bound_ms(nb, ops)
         print(f"frame exact {sname}: {ms:.3f} ms/frame over {B} frames ({W}x{H}, D={D}, "
               f"{TILES} row tiles sharing one card: not a scaling number; host-to-device copy "
-              f"included), its kernels' bound {b_ms / B:.4f} ms/frame ({b_by}), card {card}")
+              f"included), its kernels' bound {b_ms / B:.4f} ms/frame ({b_by}), peak device "
+              f"memory of the run {own:.2f} GB (above the {held / 1e9:.2f} GB this script "
+              f"holds), card {card}")
     rows = []
     chain = runs["pipelined"][3]
     timed = {"aggregate_dual_chain": (sgm_cuda.aggregate_dual, chain,
@@ -756,8 +793,9 @@ def parallel_phases(torch, card: str):
 
 
 def script_phases(torch, card: str):
-    """Phase 10; returns the kernels-line rows of the four measurement
-    kernel families."""
+    """Phase 10; returns the kernels-line rows of three measurement kernel
+    families, and {the fourth's (sum_wta's) name: its script's
+    device_ms by variant} (sum_wta's row is the full search's)."""
     from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
     from stereovision_tpu_torch.scripts import (bench_agg_step, bench_rdisp, bench_sumwta,
                                                 bench_wta_variants)
@@ -768,7 +806,7 @@ def script_phases(torch, card: str):
         "right_disparity_variants": lambda: bench_rdisp.run(ds=(128, D)),
         "sum_wta": lambda: bench_sumwta.run(ds=(128, 384, D)),
     }
-    rows = []
+    rows, script_rows = [], {}
     for kname, go in runs.items():
         t0 = time.perf_counter()
         sgm_cuda.reset_launch_counts()
@@ -785,6 +823,9 @@ def script_phases(torch, card: str):
         print(f"script of {kname}: {len(kernel_rows)} kernel variants launched {launched} times, "
               f"all exact against their plain versions; {time.perf_counter() - t0:.1f} s, "
               f"card {card}")
+        if kname not in SLICE4_KERNELS:  # sum_wta: its row is the full search's
+            script_rows[kname] = {r["variant"]: r["device_ms"] for r in results}
+            continue
         src, replaces, label = SLICE4_KERNELS[kname]
         label = label.format(D=D)
         pick = next(r for r in results if r["variant"] == label)
@@ -868,7 +909,7 @@ def script_phases(torch, card: str):
     without_ms = cuda_ms(torch, lambda: sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, True, acc), 5)
     print(f"aggregate_dir axis 0 reverse acc at {H}x{W}x{D}: wta_out exact against its plain "
           f"version; {with_ms:.4f} ms with wta_out, {without_ms:.4f} ms without, card {card}")
-    return rows
+    return rows, script_rows
 
 
 def launch_label(kname: str, a, kw) -> str:
@@ -885,6 +926,9 @@ def launch_label(kname: str, a, kw) -> str:
         return f"({h}, {wd}, {a[2]}) nw={nw} min_d={a[3]}"
     if kname == "speckle_counts":
         return f"{tuple(a[0].shape)} k={a[1]} nbins={a[3]}"
+    if kname == "sum_wta_fused":
+        return (f"{tuple(a[0].shape)} {str(a[0].dtype).removeprefix('torch.')} "
+                f"{kw.get('emit', 'hwd')}")
     return str(tuple(a[0].shape))
 
 
@@ -898,16 +942,25 @@ def seeded_cost_launch(torch, sgm_cuda):
 
 def ablations(torch, kname: str, a, label: str):
     """The device time of each ablation of the shipping census_words (at
-    5x5), cost_volume (at nw = 1) or right_disparity kernel on one recorded
-    launch's inputs (``bench_cuda.census_words_ablations``,
-    ``cost_volume_ablations``, ``right_disparity_ablations``), each defined
-    one exact against its plain version; None for another launch."""
+    5x5), cost_volume (at nw = 1), right_disparity or sum_wta kernel on one
+    recorded launch's inputs (``bench_cuda.census_words_ablations``,
+    ``cost_volume_ablations``, ``right_disparity_ablations``,
+    ``sum_wta_ablations``), each defined one exact against its plain
+    version; None for another launch."""
     from stereovision_tpu_torch.ops import bench_cuda
 
     if kname == "right_disparity":
         return {form: device_ms(lambda form=form: bench_cuda.right_disparity_ablations(
                     *a[:1], form, *a[1:2]), f"{form} at {label}")
                 for form in bench_cuda.RDISP_ABLATIONS}
+    if kname == "sum_wta_fused":
+        got = bench_cuda.sum_wta_ablations(*a[:4], "no_store")
+        want = bench_cuda.sum_wta_ablations_plain(*a[:4], "no_store")
+        check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+              f"the no_store ablation's statistics differ from the plain ones at {label}")
+        return {form: device_ms(lambda form=form: bench_cuda.sum_wta_ablations(*a[:4], form),
+                                f"{form} at {label}")
+                for form in bench_cuda.SUM_ABLATIONS}
     if kname == "census_words" and tuple(a[1:3]) == (5, 5):
         fn, plain, forms, args = (bench_cuda.census_words_ablations,
                                   bench_cuda.census_words_ablations_plain,
@@ -932,11 +985,12 @@ def ablations(torch, kname: str, a, label: str):
 
 def redesign_phase(torch, card: str, calls):
     """The end of phase 10: each redesigned kernel against its earlier design
-    on the production frame's recorded launches (wrapper name → [(args,
-    kwargs)]; each distinct launch once, see :func:`launch_label`): both
+    on the production frame's recorded launches, the full search's for
+    ``sum_wta`` (wrapper name → [(args, kwargs)]; each distinct launch
+    once, see :func:`launch_label`): both
     exact against the plain version, then timed in turns (earlier, new,
     new, earlier; events and the device alone), census_words,
-    cost_volume and right_disparity also with a part taken out
+    cost_volume, right_disparity and sum_wta also with a part taken out
     (:func:`ablations`); and ``nearest_valid_lohi`` on lines past 8192
     (``LONG_LINES``), exact. Returns {wrapper name: {launch: the turns'
     (ms, device_ms) by design, the bound and the ablations' device_ms}}."""
@@ -951,6 +1005,7 @@ def redesign_phase(torch, card: str, calls):
         "speckle_counts": bench_cuda.speckle_counts_direct,
         "census_words": bench_cuda.census_words_first,
         "cost_volume": bench_cuda.cost_volume_first,
+        "sum_wta_fused": bench_cuda.sum_wta_first,
     }
     table = {}
     for kname, kcalls in calls.items():
@@ -966,7 +1021,9 @@ def redesign_phase(torch, card: str, calls):
                 got = fn(*a, **kw)
                 got = got if isinstance(got, tuple) else (got,)
                 check(len(got) == len(want) and all(
-                    g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    (g is None and w is None) or (g is not None and w is not None
+                                                  and g.dtype == w.dtype and torch.equal(g, w))
+                    for g, w in zip(got, want)),
                     f"{kname} ({name} design) differs from its plain version at {label}")
             del got, want
             turns = {"earlier": [], "new": []}
@@ -1037,19 +1094,21 @@ def main() -> int:
     paths = {
         # name: (params, pair, kernels that must launch)
         "full_lr_off": (SGMParams(num_disparities=D, mode="full", lr_max_diff=-1), flat,
-                        ("census_words", "cost_volume", "aggregate_dual", "speckle_counts")),
+                        ("census_words", "cost_volume", "aggregate_dual", "speckle_counts",
+                         "sum_wta")),
         "full_lr_on": (SGMParams(num_disparities=D), flat,
                        ("census_words", "cost_volume", "aggregate_dual", "right_disparity",
-                        "shift_gather", "speckle_counts")),
+                        "shift_gather", "speckle_counts", "sum_wta")),
         "production": (production_preset(), planes, tuple(KERNELS)),
     }
     pipes = {name: DepthPipeline(cal, p, min_depth=0.2, max_depth=4.0)
              for name, (p, _, _) in paths.items()}
 
     # -- 3. every kernel launch of one frame of each path against its plain version
-    kernel_targets = [(sgm_cuda, name) for name in KERNELS]
+    kernel_targets = [(sgm_cuda, name) for name in (*KERNELS, *FULL_KERNELS)]
     stage_targets = [({"im": im, "sgm": sgm, "sgm_cuda": sgm_cuda}[m], n)
-                     for m, names in STAGES.items() for n in names]
+                     for m, names in STAGES.items() for n in names
+                     if n not in FULL_KERNELS]  # recorded as kernels already
     recorded = {}
     for name, (_, (left_np, right_np), _) in paths.items():
         targets = kernel_targets + (stage_targets if name in ("production", "full_lr_on") else [])
@@ -1058,7 +1117,13 @@ def main() -> int:
             torch.cuda.synchronize()
         recorded[name] = rec.calls
     errs = {k: max(parity(torch, sgm_cuda, {k: calls[k]}, path)
-                   for path, calls in recorded.items()) for k in KERNELS}
+                   for path, calls in recorded.items()) for k in (*KERNELS, *FULL_KERNELS)}
+    # the full search's four volumes: one fused launch a frame, with the
+    # summed volume only for the LR check
+    for name, emit in (("full_lr_off", "none"), ("full_lr_on", "hwd")):
+        fused = recorded[name]["sum_wta_fused"]
+        check(len(fused) == 1 and fused[0][1].get("emit") == emit,
+              f"{name}: sum_wta_fused calls {[kw for _, kw in fused]}, not one with emit {emit}")
     # int16 dual volumes (a census with n_bits + P2 > 127) take the same
     # statistics kernel: seeded volumes at the refine stack's and the full
     # search's shapes
@@ -1079,13 +1144,18 @@ def main() -> int:
     results = {}
     for name, (p, (left_np, right_np), must) in paths.items():
         pipe = pipes[name]
-        sgm_cuda.reset_launch_counts()
-        res = pipe(left_np, right_np)
-        torch.cuda.synchronize()
-        launches[name] = sgm_cuda.launch_counts()
+        with Recorder(torch, [(sgm_cuda, "sum_wta")]) as plain_sum:
+            sgm_cuda.reset_launch_counts()
+            res = pipe(left_np, right_np)
+            torch.cuda.synchronize()
+            launches[name] = sgm_cuda.launch_counts()
         print(f"launches in one {name} frame: {launches[name]}")
         for k in must:
             check(launches[name][k] > 0, f"kernel {k} was not launched on the {name} path")
+        check(not plain_sum.calls["sum_wta"], f"the plain sum_wta ran on the {name} path")
+        if name != "production":
+            check(launches[name]["sum_wta"] == 1,
+                  f"{name}: {launches[name]['sum_wta']} sum_wta launches, not 1")
         ref = DepthPipeline(cal, dataclasses.replace(p, impl="xla"), min_depth=0.2,
                             max_depth=4.0)(left_np, right_np)
         torch.cuda.synchronize()
@@ -1135,15 +1205,18 @@ def main() -> int:
     for name, (p, (left_np, right_np), _) in paths.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the recorded launches' inputs, among others
         pipe = pipes[name]
         for _ in range(WARMUP):
             pipe(left_np, right_np)
         torch.cuda.synchronize()
         frame_ms[name] = ms = cuda_ms(torch, lambda: pipe(left_np, right_np), FRAMES, warmup=0)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peak = torch.cuda.max_memory_allocated()
         print(f"frame {name}: {ms:.3f} ms/frame, {1e3 / ms:.2f} frames/s ({W}x{H}, D={D}, "
               f"{FRAMES} timed frames after {WARMUP} warm-up; host-to-device copy of the pair "
-              f"included), peak device memory {peak_gb:.2f} GB, card {card}")
+              f"included), peak device memory {peak / 1e9:.2f} GB, of it the frame's own "
+              f"{(peak - held) / 1e9:.2f} GB (above the {held / 1e9:.2f} GB this script holds), "
+              f"card {card}")
 
     def replay(fn, calls):
         return lambda: [fn(*a, **kw) for a, kw in calls]
@@ -1224,6 +1297,29 @@ def main() -> int:
                            "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
     next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
+    for wname, (kname, src, replaces) in FULL_KERNELS.items():
+        fn, plain = getattr(sgm_cuda, wname), plain_of(sgm_cuda, wname)
+        timed = {}
+        for path in ("full_lr_on", "full_lr_off"):
+            calls = recorded[path][wname]
+            ms = cuda_ms(torch, replay(fn, calls), 20, warmup=3)
+            dev = device_ms(replay(fn, calls), f"{kname} ({path})")
+            plain_ms = cuda_ms(torch, replay(plain, calls), 2)
+            nbytes, ops = tally({wname: calls})
+            b_ms, b_by = bound_ms(nbytes, ops)
+            print(f"kernel {kname} ({path}): {ms:.4f} ms per frame ({len(calls)} launch, emit "
+                  f"{calls[0][1].get('emit')}), device alone {fmt(dev)}, bound {b_ms:.4f} ms "
+                  f"({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), plain "
+                  f"{plain_ms:.2f} ms, {100 * ms / frame_ms[path]:.1f}% of the frame")
+            timed[path] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by, "launches": launches[path][kname]}
+        rows.append({
+            "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
+            **timed["full_lr_on"], "max_abs_err": errs[wname], "parity": "exact",
+            "library_ms": None, "design": DESIGNS[kname],
+            "timed_as": "the LR-on full search's launch (emit hwd), replayed on its inputs",
+            "lr_off_full_launch": timed["full_lr_off"],
+        })
     redesigned = {k: prod[k] for k in ("census_words", "cost_volume", "wta_stats_from_duals",
                                         "speckle_counts", "right_disparity",
                                         "nearest_valid_lohi")}
@@ -1231,17 +1327,27 @@ def main() -> int:
     # the full search with the LR check: int16 at (720, 1280, 320)
     redesigned["right_disparity"] = (redesigned["right_disparity"]
                                      + recorded["full_lr_on"]["right_disparity"])
+    # the full search's fused sum: its LR-on (hwd) and LR-off (none) launches
+    # and seeded int16 volumes (a census with n_bits + P2 > 127) at its shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    redesigned["sum_wta_fused"] = (
+        recorded["full_lr_on"]["sum_wta_fused"] + recorded["full_lr_off"]["sum_wta_fused"]
+        + [(tuple(torch.randint(0, 150, (H, W, D), dtype=torch.int16, device="cuda",
+                                generator=gen) for _ in range(4)), {"emit": "hwd"})])
     del recorded, prod
     torch.cuda.empty_cache()
     chain_rows, host = parallel_phases(torch, card)
     rows += chain_rows
     torch.cuda.empty_cache()
-    rows += script_phases(torch, card)
+    script_rows, sum_script = script_phases(torch, card)
+    rows += script_rows
+    next(r for r in rows if r["name"] == "sum_wta")["script_device_ms"] = sum_script["sum_wta"]
     for kname, ab in redesign_phase(torch, card, redesigned).items():
+        kname = FULL_KERNELS.get(kname, (kname,))[0]
         next(r for r in rows if r["name"] == kname)["earlier_design_ab"] = ab
     del redesigned
-    check(len(rows) == len(KERNELS) + len(SLICE3_KERNELS) + len(SLICE4_KERNELS),
-          "a kernel row is missing")
+    check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
+          + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input
         r["host_us"] = host["wrappers"].get(r["name"])
     next(r for r in rows if r["name"] == "shift_gather")["host_us_forms"] = host["shift_gather"]

@@ -8,7 +8,7 @@ started together. Libraries go into ``build/cuda/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is.
 
-Five shipping sources are built a second time with ``-DSVT_VARIANTS`` into
+Six shipping sources are built a second time with ``-DSVT_VARIANTS`` into
 libraries of their own (:data:`VARIANTS`), which add the measurement
 variants and ablations of ``ops.bench_cuda``; the shipping libraries stay as they were
 and the two builds run side by side.
@@ -30,7 +30,7 @@ KERNELS = ("census", "cost", "aggregate", "wta_stats", "right_disparity", "shift
 # variant library → the shipping source it is built from, with -DSVT_VARIANTS
 VARIANTS = {"aggregate_variants": "aggregate", "wta_stats_variants": "wta_stats",
             "right_disparity_variants": "right_disparity", "census_variants": "census",
-            "cost_variants": "cost"}
+            "cost_variants": "cost", "sum_wta_variants": "sum_wta"}
 LIBRARIES = KERNELS + tuple(VARIANTS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

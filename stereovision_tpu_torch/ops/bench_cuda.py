@@ -2,8 +2,10 @@
 package's four TPU measurement scripts, each beside its plain version.
 
 - :func:`sum_wta` ← ``scripts/bench_sumwta.py:110`` (``make_pallas``): the
-  four path volumes summed, their winner statistics and optionally the
-  int16 sum, in one read of each volume (``csrc/sum_wta.cu``).
+  engine's ``sgm_cuda.sum_wta_fused`` (``csrc/sum_wta.cu``), under the name
+  the measurement script calls; :func:`sum_wta_first`, its first design (a
+  warp a pixel), and :func:`sum_wta_ablations`, the shipping kernel with a
+  part taken out (no TPU counterpart).
 - :func:`aggregate_dual_variants` ← ``scripts/bench_agg_step.py:216``:
   ablations of ``aggregate_dual``'s recurrence (``csrc/aggregate.cu``), on
   the earlier design of that kernel, the one the script's variants were
@@ -34,12 +36,14 @@ package's four TPU measurement scripts, each beside its plain version.
   design (chunk walks, ``csrc/nearest_lohi.cu``), timed beside the
   shipping scans (no TPU counterpart).
 
-The variant families and the ablations are compile-time variants of the
-shipping kernels, built into libraries of their own (``_build.VARIANTS``); the
+The variant families, the ablations and ``sum_wta_first`` are compile-time
+variants of the shipping kernels, built into libraries of their own
+(``_build.VARIANTS``); the
 variant named ``boxes`` is the shipping ``right_disparity`` kernel itself,
 ``in_place``, ``shipping`` and ``base`` the earlier designs of
 ``right_disparity``, ``aggregate_dual`` and ``wta_stats_from_duals``. No
-engine path launches any of these: they are what the scripts of
+engine path launches any of these (``sum_wta`` is the engine's own wrapper,
+counted as ``sum_wta``): they are what the scripts of
 ``stereovision_tpu_torch.scripts`` and ``chip_smoke.py`` time. As in :mod:`.sgm_cuda`, a wrapper
 sends a CPU tensor to its plain version and launches its kernel on a CUDA
 tensor (no fallback), and adds one to its count in
@@ -63,81 +67,68 @@ import torch
 
 from stereovision_tpu_torch.ops import sgm_cuda
 from stereovision_tpu_torch.ops.sgm_cuda import (_BIGI, _MASKED, _P, _F, _I, _L, _check,
-                                                 _float_stats, _launch, _launches, _renorm,
-                                                 _scan, _sgm_step_norm, _store, _wta_stats)
+                                                 _check_d_valid, _float_stats, _launch,
+                                                 _launches, _renorm, _scan, _sgm_step_norm,
+                                                 _store, _wta_stats)
 
 # ---------------------------------------------------------------------------
-# Fused sum of four volumes + winner statistics
+# Fused sum of four volumes + winner statistics: the first design, ablations
 # ---------------------------------------------------------------------------
 
-EMITS = {"none": 0, "hwd": 1, "dhw": 2}
-_S_CLAMP = 30000
+# the engine's wrapper (sgm_cuda.sum_wta_fused) and its plain version, under
+# the names the measurement script calls
+sum_wta, sum_wta_plain = sgm_cuda.sum_wta_fused, sgm_cuda.sum_wta_fused_plain
 
 
-def _check_d_valid(D: int, d_valid):
-    d_valid = D if d_valid is None else d_valid
-    if not 0 < d_valid <= D:
-        raise ValueError(f"d_valid must be in (0, {D}], got {d_valid}")
-    return d_valid
-
-
-def sum_wta_plain(hf, hb, vf, vb, d_valid: int | None = None, emit: str = "hwd"):
-    """The int32 sum of four (H, W, D) path volumes, planes ≥ ``d_valid``
-    at 2²¹ → (s, best, idx, cm, cp, competitor): the script's key
-    min(s, 2³⁰/dp − 1)·dp + d (dp the next power of two ≥ D) gives best and
-    idx, cm, cp and the competitor are 2²⁹ where no such plane exists, all
-    float32 but idx (int32); s is min(sum, 30000) as int16 in (H, W, D)
-    (``emit="hwd"``) or (D, H, W) (``"dhw"``), or None (``"none"``)."""
-    s = hf.to(torch.int32) + hb + vf + vb
-    D = s.shape[-1]
-    d_valid = _check_d_valid(D, d_valid)
-    d = torch.arange(D, device=s.device)
-    if d_valid < D:
-        s = torch.where(d >= d_valid, _MASKED, s)
-    dp = 1 << (D - 1).bit_length()
-    kmin = (s.clamp(max=(1 << 30) // dp - 1) * dp + d).amin(dim=-1)
-    best, idx = kmin // dp, kmin % dp
-    cm = torch.where(d == idx[..., None] - 1, s, _BIGI).amin(dim=-1)
-    cp = torch.where(d == idx[..., None] + 1, s, _BIGI).amin(dim=-1)
-    comp = torch.where((d - idx[..., None]).abs() > 1, s, _BIGI).amin(dim=-1)
-    vol = None
-    if emit != "none":
-        vol = s.clamp(max=_S_CLAMP).to(torch.int16)
-        if emit == "dhw":
-            vol = vol.permute(2, 0, 1).contiguous()
-    return (vol, *_float_stats(best, idx, cm, cp, comp))
-
-
-def sum_wta(hf, hb, vf, vb, d_valid: int | None = None, emit: str = "hwd"):
-    """Four (H, W, D) int8 path volumes (the horizontal and the vertical
-    pair) → (s, best, idx, cm, cp, competitor), see :func:`sum_wta_plain`;
-    one read of each volume."""
-    if emit not in EMITS:
-        raise ValueError(f"emit must be one of {tuple(EMITS)}, got {emit!r}")
+def sum_wta_first(hf, hb, vf, vb, d_valid: int | None = None, emit: str = "hwd"):
+    """``sum_wta``'s first design (one warp a pixel, lane l holding planes
+    l, l + 32, ...; ``csrc/sum_wta.cu``'s ``sum_wta_first``, templated on
+    the item size), timed beside the shipping kernel. The same function:
+    its plain version is :func:`sgm_cuda.sum_wta_fused_plain`."""
     vols = (hf, hb, vf, vb)
-    if any(v.shape != hf.shape for v in vols):
-        raise ValueError(f"volume shapes differ: {[tuple(v.shape) for v in vols]}")
-    D = hf.shape[-1]
-    d_valid = _check_d_valid(D, d_valid)
+    d_valid = sgm_cuda._sum_wta_check(vols, d_valid, emit)
     if hf.device.type == "cpu":
-        return sum_wta_plain(hf, hb, vf, vb, d_valid, emit)
-    sgm_cuda._check_planes("sum_wta", D)
-    for v, name in zip(vols, ("hf", "hb", "vf", "vb")):
-        _check(v, name, torch.int8, 3)
-    H, W, _ = hf.shape
-    dev = hf.device
-    vol = None
-    if emit != "none":
-        vol = torch.empty((D, H, W) if emit == "dhw" else (H, W, D), dtype=torch.int16,
-                          device=dev)
-    best, cm, cp, comp = (torch.empty((H, W), dtype=torch.float32, device=dev)
-                          for _ in range(4))
-    idx = torch.empty((H, W), dtype=torch.int32, device=dev)
-    _launch("sum_wta", dev, *(v.data_ptr() for v in vols),
-            None if vol is None else vol.data_ptr(), best.data_ptr(), idx.data_ptr(),
-            cm.data_ptr(), cp.data_ptr(), comp.data_ptr(), H * W, D, d_valid, EMITS[emit])
-    _launches["sum_wta"] += 1
-    return vol, best, idx, cm, cp, comp
+        return sgm_cuda.sum_wta_fused_plain(hf, hb, vf, vb, d_valid, emit)
+    vol, stats, args = sgm_cuda._sum_wta_outputs("sum_wta_first", vols, d_valid, emit)
+    _launch("sum_wta_first", hf.device, *args, sgm_cuda.SUM_EMITS[emit], hf.element_size())
+    _launches["sum_wta_first"] += 1
+    return (vol, *stats)
+
+
+# ablations of the shipping sum_wta (hwd) → their code in csrc/sum_wta.cu
+SUM_ABLATIONS = {"stage_only": 1, "no_store": 2, "move_only": 3}
+
+
+def sum_wta_ablations_plain(hf, hb, vf, vb, form: str, d_valid: int | None = None):
+    """What each ablation defines: ``no_store`` the statistics (its volume
+    is never written: None); ``stage_only`` and ``move_only`` nothing."""
+    _ablation(form, SUM_ABLATIONS)
+    if form != "no_store":
+        return None
+    return (None, *sgm_cuda.sum_wta_fused_plain(hf, hb, vf, vb, d_valid, "none")[1:])
+
+
+def sum_wta_ablations(hf, hb, vf, vb, form: str, d_valid: int | None = None):
+    """The shipping ``sum_wta`` kernel with ``emit="hwd"`` and one part
+    taken out, to say which part holds its time (a key of
+    :data:`SUM_ABLATIONS`): ``stage_only`` (the four spans staged by
+    cp.async, nothing computed or written), ``no_store`` (everything but
+    the summed volume's copy-out to device memory: the statistics are
+    written), ``move_only`` (the spans staged and the staged output span
+    written out, nothing computed). The design is the shipping kernel's
+    (``sgm_cuda.sum_wta_design``). See :func:`sum_wta_ablations_plain`
+    for what each returns."""
+    code = _ablation(form, SUM_ABLATIONS)
+    vols = (hf, hb, vf, vb)
+    d_valid = sgm_cuda._sum_wta_check(vols, d_valid, "hwd")
+    if hf.device.type == "cpu":
+        return sum_wta_ablations_plain(hf, hb, vf, vb, form, d_valid)
+    vol, stats, args = sgm_cuda._sum_wta_outputs("sum_wta_ablations", vols, d_valid, "hwd")
+    g, _, q, _, _ = sgm_cuda.sum_wta_design(hf.shape[-1], hf.element_size())
+    _launch("sum_wta_ablations", hf.device, *args, hf.element_size(), g.bit_length() - 1, q,
+            code)
+    _launches["sum_wta_ablations"] += 1
+    return (vol, *stats) if form == "no_store" else None
 
 
 # ---------------------------------------------------------------------------
@@ -637,13 +628,17 @@ def cost_volume_ablations(cl: torch.Tensor, cr: torch.Tensor, num_disparities: i
     return out
 
 
-KERNEL_WRAPPERS = (sum_wta, aggregate_dual_variants, aggregate_staged_variants,
+KERNEL_WRAPPERS = (aggregate_dual_variants, aggregate_staged_variants,
                    wta_stats_variants, right_disparity_variants, speckle_counts_direct,
                    census_words_first, cost_volume_first, census_words_ablations,
-                   cost_volume_ablations, nearest_valid_lohi_chunks, right_disparity_ablations)
+                   cost_volume_ablations, nearest_valid_lohi_chunks, right_disparity_ablations,
+                   sum_wta_first, sum_wta_ablations)
 COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS)
 sgm_cuda.register({
-    "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L, _I, _I, _I, _P)),
+    "sum_wta_first": ("svt_sum_wta_first", (_P,) * 10 + (_L,) + (_I,) * 4 + (_P,),
+                      "sum_wta_variants"),
+    "sum_wta_ablations": ("svt_sum_wta_ablation", (_P,) * 10 + (_L,) + (_I,) * 6 + (_P,),
+                          "sum_wta_variants"),
     "aggregate_variants": ("svt_aggregate_dual_variant",
                            (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P)),
     "aggregate_staged_variants": ("svt_aggregate_staged_variant",

@@ -1,7 +1,7 @@
 """CUDA kernels of the SGM engine, each beside its plain version.
 
-Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Ten kernels, written
-by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
+Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Eleven kernels,
+written by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
 
 - :func:`census_words`         ← ``sgm_pallas.census_words``
 - :func:`cost_volume`          ← ``sgm_pallas.cost_volume_planes``
@@ -13,9 +13,14 @@ by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
 - :func:`speckle_counts`       ← ``sgm_pallas.speckle_counts``
 - :func:`nearest_valid_lohi`   ← ``sgm_pallas.nearest_valid_lohi``
 - :func:`wta`                  ← ``sgm_pallas.wta``
+- :func:`sum_wta_fused`        ← ``scripts/bench_sumwta.py:110``
+  (``make_pallas``): the four path volumes of a full search summed, their
+  winner statistics and the int16 sum, in one read of each volume; counted
+  as ``sum_wta``
 
 ``sum_wta`` and ``st_from_duals`` are XLA code in the reference and plain
-PyTorch here.
+PyTorch here: the engine calls ``sum_wta`` only for the horizontal pair
+under ``stats_impl="xla"``, the formulation that option names.
 
 Each wrapper sends a CPU tensor to its plain PyTorch version (``*_plain``)
 and launches its kernel on a CUDA tensor, on the current stream; there is no
@@ -26,8 +31,8 @@ fallback from one to the other. A wrapper adds one to its count in
 their counts to the same dict (:func:`register`).
 
 The kernels that keep a pixel's or a line's disparities in registers
-(``aggregate_dir``, ``aggregate_dual``, ``wta_stats_from_duals``, ``wta``)
-take at most 32 a lane: D ≤ 1024 on a card.
+(``aggregate_dir``, ``aggregate_dual``, ``wta_stats_from_duals``, ``wta``,
+``sum_wta_fused``) take at most 32 a lane: D ≤ 1024 on a card.
 
 Layouts are the GPU's own, not the TPU kernels': census words are
 (nw, H, W) int32 and every volume is (H, W, D) with exactly D planes — no
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -66,6 +72,7 @@ _SIGNATURES = {
     "shift_gather": ("svt_shift_gather", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "nearest_lohi": ("svt_nearest_valid_lohi", (_P,) * 5 + (_I,) * 4 + (_P,)),
     "wta": ("svt_wta", (_P, _P, _P, _P, _P, _P, _L, _I, _P)),
+    "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L,) + (_I,) * 6 + (_P,)),
 }
 _fns: dict = {}
 _launches: dict[str, int] = {}
@@ -526,6 +533,124 @@ def st_from_duals(hf: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Sum of four path volumes + winner statistics, fused
+# ---------------------------------------------------------------------------
+
+SUM_EMITS = {"none": 0, "hwd": 1, "dhw": 2}
+_S_CLAMP = 30000
+_SUM_THREADS = 256  # a block of csrc/sum_wta.cu
+
+
+def _check_d_valid(D: int, d_valid):
+    d_valid = D if d_valid is None else d_valid
+    if not 0 < d_valid <= D:
+        raise ValueError(f"d_valid must be in (0, {D}], got {d_valid}")
+    return d_valid
+
+
+def sum_wta_fused_plain(hf, hb, vf, vb, d_valid: int | None = None, emit: str = "hwd"):
+    """The int32 sum of four (H, W, D) path volumes, planes ≥ ``d_valid``
+    at 2²¹ → (s, best, idx, cm, cp, competitor): the script's key
+    min(s, 2³⁰/dp − 1)·dp + d (dp the next power of two ≥ D) gives best and
+    idx, cm, cp and the competitor are 2²⁹ where no such plane exists, all
+    float32 but idx (int32); s is min(sum, 30000) as int16 in (H, W, D)
+    (``emit="hwd"``) or (D, H, W) (``"dhw"``), or None (``"none"``). At
+    d_valid = D, :func:`sum_wta` of the four volumes computes the same."""
+    s = hf.to(torch.int32) + hb + vf + vb
+    D = s.shape[-1]
+    d_valid = _check_d_valid(D, d_valid)
+    d = torch.arange(D, device=s.device)
+    if d_valid < D:
+        s = torch.where(d >= d_valid, _MASKED, s)
+    dp = 1 << (D - 1).bit_length()
+    kmin = (s.clamp(max=(1 << 30) // dp - 1) * dp + d).amin(dim=-1)
+    best, idx = kmin // dp, kmin % dp
+    cm = torch.where(d == idx[..., None] - 1, s, _BIGI).amin(dim=-1)
+    cp = torch.where(d == idx[..., None] + 1, s, _BIGI).amin(dim=-1)
+    comp = torch.where((d - idx[..., None]).abs() > 1, s, _BIGI).amin(dim=-1)
+    vol = None
+    if emit != "none":
+        vol = s.clamp(max=_S_CLAMP).to(torch.int16)
+        if emit == "dhw":
+            vol = vol.permute(2, 0, 1).contiguous()
+    return (vol, *_float_stats(best, idx, cm, cp, comp))
+
+
+class SumWtaDesign(NamedTuple):
+    g: int  # lanes a pixel, a power of two
+    p: int  # pixels a block
+    q: int  # contiguous planes a lane, a multiple of 4
+    vec: bool  # a lane's runs load as 16-byte vectors (16-byte aligned volumes)
+    words: bool  # every lane's run of the hwd sum stores as whole words
+
+
+@functools.lru_cache(maxsize=None)
+def sum_wta_design(D: int, itemsize: int) -> SumWtaDesign:
+    """The instance :func:`sum_wta_fused` launches on a card for D planes of
+    ``itemsize``-byte volumes: G, the least power of two that leaves at most
+    32 planes a lane, lanes share a pixel; a block of 256 threads takes
+    P = 256 / G pixels; a lane holds Q planes, the least multiple of 4 ≥
+    D / G. A lane's runs load as 16-byte vectors where each pixel's and each
+    run's bytes are multiples of 16 (else as funnel-shifted words), and its
+    run of the int16 sum stores as whole words where D is even (an odd D
+    puts every other pixel's runs two bytes off a word: a half, words, a
+    half). See ``csrc/sum_wta.cu``."""
+    g = 1
+    while -(-D // g) > 32:
+        g *= 2
+    q = (-(-D // g) + 3) // 4 * 4
+    vec = D * itemsize % 16 == 0 and q * itemsize % 16 == 0
+    return SumWtaDesign(g, _SUM_THREADS // g, q, vec, D % 2 == 0)
+
+
+def _sum_wta_check(vols, d_valid, emit: str) -> int:
+    """Check four volumes' emit, shapes and d_valid on any device → d_valid."""
+    if emit not in SUM_EMITS:
+        raise ValueError(f"emit must be one of {tuple(SUM_EMITS)}, got {emit!r}")
+    if any(v.shape != vols[0].shape for v in vols):
+        raise ValueError(f"volume shapes differ: {[tuple(v.shape) for v in vols]}")
+    return _check_d_valid(vols[0].shape[-1], d_valid)
+
+
+def _sum_wta_outputs(name: str, vols, d_valid: int, emit: str):
+    """Check four volumes for a launch of ``csrc/sum_wta.cu`` (``name``'s
+    entry) and allocate its outputs → (the volume or None, the five maps,
+    the C arguments up to d_valid)."""
+    hf = vols[0]
+    H, W, D = hf.shape
+    _check_planes(name, D)
+    if hf.dtype not in (torch.int8, torch.int16):
+        raise TypeError(f"hf must be int8 or int16, got {hf.dtype}")
+    for v, vname in zip(vols, ("hf", "hb", "vf", "vb")):
+        _check(v, vname, hf.dtype, 3)
+    vol = None
+    if emit != "none":
+        vol = torch.empty((D, H, W) if emit == "dhw" else (H, W, D), dtype=torch.int16,
+                          device=hf.device)
+    stats, ptrs = _stat_maps(H, W, hf.device)
+    args = (*(v.data_ptr() for v in vols), None if vol is None else vol.data_ptr(), *ptrs,
+            H * W, D, d_valid)
+    return vol, stats, args
+
+
+def sum_wta_fused(hf, hb, vf, vb, d_valid: int | None = None, emit: str = "hwd"):
+    """Four (H, W, D) int8 or int16 path volumes (the horizontal and the
+    vertical pair) → (s, best, idx, cm, cp, competitor), see
+    :func:`sum_wta_fused_plain`; one read of each volume (see
+    :func:`sum_wta_design` for the kernel's instances)."""
+    vols = (hf, hb, vf, vb)
+    d_valid = _sum_wta_check(vols, d_valid, emit)
+    if hf.device.type == "cpu":
+        return sum_wta_fused_plain(hf, hb, vf, vb, d_valid, emit)
+    vol, stats, args = _sum_wta_outputs("sum_wta", vols, d_valid, emit)
+    g, _, q, _, _ = sum_wta_design(hf.shape[-1], hf.element_size())
+    _launch("sum_wta", hf.device, *args, SUM_EMITS[emit], hf.element_size(),
+            g.bit_length() - 1, q)
+    _launches["sum_wta"] += 1
+    return (vol, *stats)
+
+
+# ---------------------------------------------------------------------------
 # Winner statistics of two dual volumes
 # ---------------------------------------------------------------------------
 
@@ -843,7 +968,8 @@ def wta(agg: torch.Tensor):
 
 KERNEL_WRAPPERS = (census_words, cost_volume, aggregate_dir, aggregate_dual,
                    wta_stats_from_duals, right_disparity, shift_gather, speckle_counts,
-                   nearest_valid_lohi, wta)
-# launch counts: one per wrapper, and aggregate_dual's chain mode apart
-COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS) + ("aggregate_dual_chain",)
+                   nearest_valid_lohi, wta, sum_wta_fused)
+# launch counts: one per wrapper, by its name but sum_wta_fused's, which
+# counts as its kernel (csrc/sum_wta.cu); aggregate_dual's chain mode apart
+COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS[:-1]) + ("sum_wta", "aggregate_dual_chain")
 reset_launch_counts()

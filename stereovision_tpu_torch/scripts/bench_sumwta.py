@@ -7,14 +7,16 @@ Replaces the TPU kernel of ``scripts/bench_sumwta.py:110`` (``make_pallas``,
 :47-119, body :53-84): the fused sum of the four int8 path volumes, its
 ``_wta_stats`` with planes ≥ d_valid at 2²¹, and optionally the int16 sum
 for the LR check. Here that is ``ops/csrc/sum_wta.cu``
-(:func:`bench_cuda.sum_wta`), one warp a pixel reading each volume once:
+(:func:`bench_cuda.sum_wta`, the engine's ``sgm_cuda.sum_wta_fused``, which
+the full search runs), a block's pixels staged by cp.async and G lanes a
+pixel, reading each volume once:
 
 - ``hwd``, ``dhw``, ``none``: the kernel writing the sum (clamped at 30000)
   as (H, W, D), as (D, H, W), or not at all (the script's ``pallas_full``,
   ``pallas_dhw`` and ``pallas_none``);
 - ``cur``, ``cur_nolr``: the yardstick, ``sgm_cuda.sum_wta`` on the
-  volumes' first d_valid planes, the plain torch path the engine runs today
-  (with and without the summed volume);
+  volumes' first d_valid planes, the plain torch path the engine ran
+  before it took the kernel (with and without the summed volume);
 - ``st_first``: the yardstick, plain torch building the (D, H, W) sum first
   and taking the statistics over its outer axis.
 
@@ -49,7 +51,7 @@ H, W = 720, 1280
 DS = (128, 384)
 D_VALID = {384: 320}  # the script's padded D → the planes that are real
 N, WARMUP = 20, 3
-EMIT_VARIANTS = tuple(bench_cuda.EMITS)
+EMIT_VARIANTS = tuple(sgm_cuda.SUM_EMITS)
 VARIANTS = (*EMIT_VARIANTS, "cur", "cur_nolr", "st_first")
 
 

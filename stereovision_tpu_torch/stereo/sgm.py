@@ -318,14 +318,18 @@ def _kernel_costs(left, right, p: SGMParams, cl=None, cr=None, crop: int = 0):
 
 def _kernel_select(vols, p: SGMParams, lr_rows: int | None = None):
     """The kernel path's tail: the horizontal pair or all four path volumes
-    → winner statistics (``wta_stats_from_duals`` for the pair unless
-    ``stats_impl="xla"``, else ``sum_wta``) → WTA → the LR check on the
-    leading ``lr_rows`` rows (all by default). Returns (disp, valid, best
-    cost)."""
+    → winner statistics (four volumes: ``sum_wta_fused``, with the summed
+    volume only for the LR check; the pair: ``wta_stats_from_duals``, or
+    the plain ``sum_wta`` where ``stats_impl="xla"`` asks for that
+    formulation) → WTA → the LR check on the leading ``lr_rows`` rows (all
+    by default). Returns (disp, valid, best cost)."""
     hf, hb = vols[:2]
     lr_rows = hf.shape[0] if lr_rows is None else lr_rows
     lr = p.lr_max_diff >= 0 and lr_rows > 0
-    if len(vols) == 2 and p.stats_impl != "xla":
+    if len(vols) == 4:
+        s, *stats = sgm_cuda.sum_wta_fused(*vols, emit="hwd" if lr else "none")
+        s = s[:lr_rows] if lr else None
+    elif p.stats_impl != "xla":
         stats = sgm_cuda.wta_stats_from_duals(hf, hb)
         s = sgm_cuda.st_from_duals(hf[:lr_rows], hb[:lr_rows]) if lr else None
     else:

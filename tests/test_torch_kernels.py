@@ -1,4 +1,4 @@
-"""The port's ten kernels (stereovision_tpu_torch.ops.sgm_cuda).
+"""The port's eleven kernels (stereovision_tpu_torch.ops.sgm_cuda).
 
 On the CPU: each plain version is held exactly against the JAX package's
 Pallas kernel run in interpret mode on the same numpy inputs (real lanes
@@ -282,12 +282,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     sgm_cuda.aggregate_dual(cost, 8.0, 96.0, boundary=(z, z), return_final=True, cost_b=cost)
     s = sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=1)
     sgm_cuda.wta(sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=0, acc=s))
+    sgm_cuda.sum_wta_fused(hf, hb, hf, hb)
     # the measurement kernels of bench_cuda count in the same dict
     assert sgm_cuda.launch_counts() == {name: 0 for name in (*sgm_cuda.COUNTS,
                                                              *bench_cuda.COUNTS)}
-    assert len(sgm_cuda.KERNEL_WRAPPERS) == 10
-    assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS} | {
-        "aggregate_dual_chain"}
+    assert len(sgm_cuda.KERNEL_WRAPPERS) == 11
+    # sum_wta_fused counts under its kernel's name
+    assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS[:-1]} | {
+        "sum_wta", "aggregate_dual_chain"}
 
 
 def test_census_design_templates_the_engine_windows():
@@ -507,6 +509,55 @@ def test_sum_wta_matches_stats_of_the_float_sum():
     assert torch.equal(comp, fcomp)
 
 
+@pytest.mark.parametrize("dtype,hi", [("int8", 128), ("int16", 20000)])
+def test_fused_sum_wta_matches_reference(pallas, dtype, hi):
+    """The fused wrapper's CPU path (its plain version) on four volumes
+    against the reference's XLA sum_wta with emit_transposed: the same
+    statistics, and the int16 sum equal to the reference's s_t in
+    (H, W, D); the int16 volumes' sums pass the 30000 clamp."""
+    import jax.numpy as jnp
+
+    H_, W_, D_ = 9, 20, 16
+    vols = [RNG.integers(0, hi, size=(H_, W_, D_)).astype(dtype) for _ in range(4)]
+    jv = [jnp.asarray(v.transpose(1, 0, 2)) for v in vols[:2]] + [jnp.asarray(v) for v in vols[2:]]
+    ref = pallas.sum_wta(tuple(jv), d_valid=D_, emit_transposed=True)
+    out = sgm_cuda.sum_wta_fused(*(torch.from_numpy(v) for v in vols), emit="hwd")
+    assert out[0].dtype == torch.int16
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(ref[0]).transpose(1, 2, 0))
+    for r, o in zip(ref[1:], out[1:]):
+        assert o.numpy().dtype == np.asarray(r).dtype
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    if dtype == "int16":
+        assert (out[0] == 30000).any() and (out[0] < 30000).any()
+    none = sgm_cuda.sum_wta_fused(*(torch.from_numpy(v) for v in vols), emit="none")
+    assert none[0] is None and all(torch.equal(a, b) for a, b in zip(none[1:], out[1:]))
+
+
+# D → (G, P, Q, 16-byte run loads for int8, for int16, whole-word hwd stores)
+SUM_DESIGNS = {1: (1, 256, 4, False, False, False), 32: (1, 256, 32, True, True, True),
+               107: (4, 64, 28, False, False, False), 320: (16, 16, 20, False, False, True),
+               321: (16, 16, 24, False, False, False), 1024: (32, 8, 32, True, True, True)}
+
+
+@pytest.mark.parametrize("D", sorted(SUM_DESIGNS))
+def test_sum_wta_design(D):
+    """G is the least power of two that leaves at most 32 planes a lane, a
+    block of 256 threads takes 256 / G pixels, Q is the least multiple of
+    4 that covers D in G lanes; runs load as 16-byte vectors only where
+    pixels and runs are multiples of 16 bytes, and the int16 sum stores as
+    words where D is even. The staged spans and outputs fit the 96 KB the
+    kernel asks for (csrc/sum_wta.cu's Layout)."""
+    g, p, q, vec8, vec16, words = SUM_DESIGNS[D]
+    for itemsize, vec in ((1, vec8), (2, vec16)):
+        d = sgm_cuda.sum_wta_design(D, itemsize)
+        assert (d.g, d.p, d.q, d.vec, d.words) == (g, p, q, vec, words)
+        assert d.g & (d.g - 1) == 0 and d.g * d.p == 256 and d.q % 4 == 0 and d.q <= 32
+        assert d.g * d.q >= D > d.g * (d.q - 4) and (d.g == 1 or -(-D // (d.g // 2)) > 32)
+        region = (d.p * D * itemsize + 128 + 15) // 16 * 16
+        out = max(d.p * D * 2 + 32, D * (d.p + 2) * 2)
+        assert 4 * region + out + 20 * d.p <= 96 * 1024
+
+
 def test_library_path_names_the_source_hash():
     p = _build.library_path("aggregate")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("aggregate-")
@@ -559,6 +610,25 @@ def test_register_kernels_take_at_most_1024_disparities(D, raises):
     for call in calls:
         with pytest.raises(raises, match="1024" if raises is NotImplementedError else "CUDA"):
             call()
+
+
+def test_fused_sum_wta_checks_its_volumes():
+    """int8 and int16 volumes go on to the device check; another dtype, a
+    shape mismatch, an unknown emit or d_valid outside (0, D] raise before
+    anything could launch."""
+    i16, i32 = _meta((2, 3, 8), torch.int16), _meta((2, 3, 8), torch.int32)
+    i8 = _meta((2, 3, 8), torch.int8)
+    for ok in (i8, i16):
+        with pytest.raises(ValueError, match="CUDA"):
+            sgm_cuda.sum_wta_fused(ok, ok, ok, ok)
+    with pytest.raises(TypeError, match="int8 or int16"):
+        sgm_cuda.sum_wta_fused(i32, i32, i32, i32)
+    with pytest.raises(ValueError, match="shapes"):
+        sgm_cuda.sum_wta_fused(i8, i8, i8, i8[:1])
+    with pytest.raises(ValueError, match="emit"):
+        sgm_cuda.sum_wta_fused(i8, i8, i8, i8, emit="whd")
+    with pytest.raises(ValueError, match="d_valid"):
+        sgm_cuda.sum_wta_fused(i8, i8, i8, i8, d_valid=0)
 
 
 def test_aggregate_dir_wta_out_needs_axis_0():
@@ -1291,27 +1361,132 @@ def test_right_disparity_variant_kernel(cuda, variant, dtype, D, d_valid):
     assert torch.equal(got, sgm_cuda.right_disparity_plain(s, d_valid))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D,d_valid", [(40, 40), (45, 30), (384, 320), (1024, 1000)])
-@pytest.mark.parametrize("emit", list(bench_cuda.EMITS))
-def test_sum_wta_kernel(cuda, emit, D, d_valid):
-    vols = [torch.from_numpy(RNG.integers(0, 120, size=(7, 13, D)).astype(np.int8)).to(cuda)
+# (dtype, H, W, D, d_valid): the first four the first design's cases; D
+# from 1 to 1024 over every instance of the design (sgm_cuda.sum_wta_design),
+# W * D * itemsize mostly not a multiple of 16, H = 1, d_valid < D
+SUM_CASES = [(torch.int8, 7, 13, 40, 40), (torch.int8, 7, 13, 45, 30),
+             (torch.int8, 7, 13, 384, 320), (torch.int8, 7, 13, 1024, 1000),
+             (torch.int8, 5, 33, 1, 1), (torch.int16, 5, 33, 1, 1),
+             (torch.int8, 6, 29, 31, 31), (torch.int16, 6, 29, 31, 20),
+             (torch.int8, 3, 31, 64, 64), (torch.int16, 3, 21, 100, 97),
+             (torch.int8, 9, 37, 107, 107), (torch.int16, 9, 37, 107, 100),
+             (torch.int8, 1, 77, 107, 107), (torch.int16, 2, 23, 200, 200),
+             (torch.int8, 4, 61, 320, 320), (torch.int16, 4, 61, 320, 320),
+             (torch.int16, 3, 17, 320, 200), (torch.int8, 3, 19, 321, 321),
+             (torch.int16, 3, 19, 321, 300), (torch.int8, 2, 5, 640, 640),
+             (torch.int16, 2, 9, 1024, 1024), (torch.int16, 1, 3, 1024, 999)]
+
+
+def _sum_volumes(dtype, H, W, D, lo=0, hi=None, device=None):
+    """Four seeded volumes: int8 in [0, 120), int16 in [0, 20000) (sums
+    past the 30000 clamp), unless lo and hi say otherwise."""
+    hi = hi if hi is not None else (120 if dtype == torch.int8 else 20000)
+    np_dtype = np.int8 if dtype == torch.int8 else np.int16
+    return [torch.from_numpy(RNG.integers(lo, hi, size=(H, W, D)).astype(np_dtype)).to(device)
             for _ in range(4)]
-    before = sgm_cuda.launch_counts()["sum_wta"]
-    got = bench_cuda.sum_wta(*vols, d_valid=d_valid, emit=emit)
-    torch.cuda.synchronize()
-    assert sgm_cuda.launch_counts()["sum_wta"] == before + 1
-    want = bench_cuda.sum_wta_plain(*vols, d_valid=d_valid, emit=emit)
+
+
+def _assert_sum_equal(got, want):
+    assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,W,D,d_valid", SUM_CASES)
+@pytest.mark.parametrize("emit", list(sgm_cuda.SUM_EMITS))
+def test_sum_wta_kernel(cuda, emit, dtype, H, W, D, d_valid):
+    vols = _sum_volumes(dtype, H, W, D, device=cuda)
+    before = sgm_cuda.launch_counts()["sum_wta"]
+    got = sgm_cuda.sum_wta_fused(*vols, d_valid=d_valid, emit=emit)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["sum_wta"] == before + 1
+    _assert_sum_equal(got, sgm_cuda.sum_wta_fused_plain(*vols, d_valid=d_valid, emit=emit))
+    assert bench_cuda.sum_wta is sgm_cuda.sum_wta_fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,lo,hi", [(torch.int8, 0, 2), (torch.int8, -128, 128),
+                                         (torch.int16, 0, 1), (torch.int16, -8000, 8000)])
+@pytest.mark.parametrize("D,d_valid", [(16, 16), (107, 90), (320, 320), (1024, 1024)])
+@pytest.mark.parametrize("emit", list(sgm_cuda.SUM_EMITS))
+def test_sum_wta_kernel_ties_and_signs(cuda, emit, D, d_valid, dtype, lo, hi):
+    """Ties everywhere (values 0 and 1, or all 0) go to the smallest d, as
+    in the plain version; negative sums key and store as it does."""
+    vols = _sum_volumes(dtype, 3, 41, D, lo, hi, device=cuda)
+    got = sgm_cuda.sum_wta_fused(*vols, d_valid=d_valid, emit=emit)
+    torch.cuda.synchronize()
+    _assert_sum_equal(got, sgm_cuda.sum_wta_fused_plain(*vols, d_valid=d_valid, emit=emit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,W,D,d_valid", SUM_CASES[::3])
+@pytest.mark.parametrize("emit", list(sgm_cuda.SUM_EMITS))
+def test_sum_wta_first_design_kernel(cuda, emit, dtype, H, W, D, d_valid):
+    """The first design (a warp a pixel, templated on the item size) computes
+    the shipping kernel's function."""
+    vols = _sum_volumes(dtype, H, W, D, device=cuda)
+    before = sgm_cuda.launch_counts()["sum_wta_first"]
+    got = bench_cuda.sum_wta_first(*vols, d_valid=d_valid, emit=emit)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["sum_wta_first"] == before + 1
+    _assert_sum_equal(got, sgm_cuda.sum_wta_fused_plain(*vols, d_valid=d_valid, emit=emit))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,W,D,d_valid", SUM_CASES[1::4])
+@pytest.mark.parametrize("form", list(bench_cuda.SUM_ABLATIONS))
+def test_sum_wta_ablations_kernel(cuda, form, dtype, H, W, D, d_valid):
+    """Each ablation launches; no_store's statistics are the plain ones."""
+    vols = _sum_volumes(dtype, H, W, D, device=cuda)
+    before = sgm_cuda.launch_counts()["sum_wta_ablations"]
+    got = bench_cuda.sum_wta_ablations(*vols, form, d_valid)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["sum_wta_ablations"] == before + 1
+    want = bench_cuda.sum_wta_ablations_plain(*(v.cpu() for v in vols), form, d_valid)
+    if want is None:
+        assert got is None
+    else:
+        assert got[0].shape == (H, W, D) and got[0].dtype == torch.int16
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got[1:], want[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [{"lr_max_diff": -1}, {}, {"p1": 7.0, "p2": 110.0}])
+def test_full_search_frames_launch_sum_wta_once(cuda, monkeypatch, change):
+    """The full search (paths=4; LR off, on, and int16 path volumes) sends
+    its four volumes to the kernel once a frame and never calls the plain
+    sgm_cuda.sum_wta; the frame equals the plain path's on the card."""
+    import dataclasses
+
+    from stereovision_tpu_torch import stereo
+
+    base = RNG.uniform(0, 255, size=(40, 77)).astype(np.float32)
+    left, right = base[:, :72], base[:, 5:77]
+    p = dataclasses.replace(stereo.SGMParams(num_disparities=32), **change)
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain sum_wta ran on the full search")
+
+    want = stereo.compute_disparity(left, right, dataclasses.replace(p, impl="xla"))
+    monkeypatch.setattr(sgm_cuda, "sum_wta", plain)
+    sgm_cuda.reset_launch_counts()
+    disp, valid = stereo.compute_disparity(left, right, p)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["sum_wta"] == 1
+    assert torch.equal(valid, want[1])
+    assert (disp - want[0]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
 def test_measurement_kernels_reject_bad_inputs(cuda):
     before = sgm_cuda.launch_counts()
     i16 = torch.zeros((4, 5, 32), dtype=torch.int16, device=cuda)
+    i32 = torch.zeros((4, 5, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        bench_cuda.sum_wta(i16, i16, i16, i16)
+        bench_cuda.sum_wta(i32, i32, i32, i32)
+    with pytest.raises(TypeError):
+        bench_cuda.sum_wta_first(i32, i32, i32, i32)
     with pytest.raises(TypeError):
         bench_cuda.aggregate_dual_variants(i16, "shipping")
     with pytest.raises(TypeError):

@@ -256,7 +256,7 @@ def _sum_inputs():
     return hf_t, hb_t, vf, vb
 
 
-@pytest.mark.parametrize("emit", sorted(bench_cuda.EMITS))
+@pytest.mark.parametrize("emit", sorted(sgm_cuda.SUM_EMITS))
 def test_sum_wta_matches_the_fused_script_kernel(emit):
     hf_t, hb_t, vf, vb = _sum_inputs()
     mod = _load("bench_sumwta")

@@ -160,6 +160,36 @@ def test_int16_duals_take_the_statistics_kernel(monkeypatch):
     assert seen == [torch.int16]
 
 
+@pytest.mark.parametrize("shape,shift,kw,dtype,emit", [
+    ((40, 72), 5, dict(lr_max_diff=-1), torch.int8, "none"),
+    ((40, 72), 7, dict(min_disparity=3, lr_max_diff=1, paths=4), torch.int8, "hwd"),
+    ((24, 48), 5, dict(lr_max_diff=-1, p1=7.0, p2=110.0), torch.int16, "none"),
+])
+def test_full_search_takes_the_fused_sum_wta(monkeypatch, shape, shift, kw, dtype, emit):
+    """paths=4 (LR off, LR on, int16 path volumes) sends the four path
+    volumes to ``sgm_cuda.sum_wta_fused`` once, with the summed volume only
+    for the LR check, and never to the plain ``sgm_cuda.sum_wta``; the
+    result is the reference's ``impl="xla"``. The shapes and parameters
+    are those of the tests above: no new JAX program."""
+    left, right = small_pair(*shape, shift=shift)
+    jp = jstereo.SGMParams(num_disparities=16, impl="xla", **kw)
+    ref = _reference(left, right, jp)
+    seen = []
+    fused = sgm_cuda.sum_wta_fused
+
+    def spy(*vols, **kwargs):
+        seen.append((len(vols), vols[0].dtype, kwargs.get("emit")))
+        return fused(*vols, **kwargs)
+
+    def plain(*a, **kwargs):
+        raise AssertionError("the plain sum_wta ran on the full search")
+
+    monkeypatch.setattr(sgm_cuda, "sum_wta_fused", spy)
+    monkeypatch.setattr(sgm_cuda, "sum_wta", plain)
+    _assert_matches(_port_disparity(left, right, jp, "auto"), ref)
+    assert seen == [(4, dtype, emit)]
+
+
 # ---------------------------------------------------------------------------
 # The configurations the first slice refused, now against the reference
 # ---------------------------------------------------------------------------
