@@ -10,9 +10,11 @@ full search with it on (``SGMParams(num_disparities=320)``), and the
 production path (``production_preset()``: hier2, R=32 windows, census
 arbitration and fill). Then the ``parallel`` package runs on a mesh of four
 row tiles on the one card, the engine's ``aggregate``/``_wta`` run
-under the kernel impl, and the four measurement scripts of
-``stereovision_tpu_torch.scripts`` run their variant kernels. Phases, each
-of which raises (exit code non-zero, no result line) on failure:
+under the kernel impl, the four measurement scripts of
+``stereovision_tpu_torch.scripts`` run their variant kernels, and the
+options of ``DepthPipeline`` (segmented scans, a processing scale, the
+exact speckle filter) and the separable remap run at full width. Phases,
+each of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the eleven CUDA sources of ``stereovision_tpu_torch/ops/csrc``
@@ -98,7 +100,18 @@ of which raises (exit code non-zero, no result line) on failure:
    (earlier, new, new, earlier), the census, cost, right-disparity and
    sum_wta kernels also with a part taken out (:func:`ablations`), and one ``nearest_valid_lohi``
    launch on a line past 8192 on each axis, exact against its plain
-   version.
+   version;
+11. (:func:`pipeline_phases`) the options of ``DepthPipeline`` at full
+   width on the production rig: ``agg_wseg=5`` (recorded, replayed,
+   counted, against ``impl="xla"``, timed), ``proc_scale=0.5``
+   (640x360; the shifts halved, against ``impl="xla"``, timed),
+   ``exact_speckle=True`` (the post-pass on the card bit for bit against
+   the native flood fill on the host, its rounds, timed), the separable
+   remap on a 720p calibration with rotation and distortion (its eight #7
+   launches replayed against the plain version, against the exact
+   ``remap``, both timed; reported on the #7 row as ``separable_remap``)
+   and the autotune (``"auto"`` → the kernel form; both statistics forms
+   bit-identical).
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
@@ -1060,6 +1073,270 @@ def redesign_phase(torch, card: str, calls):
               f"against its plain version, card {card}")
     return table
 
+# the calibration of phase 11d: a small relative rotation and barrel
+# distortion, rectified by the port's stereo_rectify (alpha 0)
+SEP_ROTATION = (0.002, 0.004, -0.001)
+SEP_DIST = (-0.05, 0.01, 0.0, 0.0, 0.0)
+SEP_T_CM = (TX_CM, 0.02, 0.01)
+
+
+def pipeline_phases(torch, card: str, cal, planes, prod_launches, prod_ms):
+    """Phase 11, the options of ``DepthPipeline`` and the separable remap at
+    full width on the production rig (``two_plane_pair``):
+
+    a. ``production_preset()`` with ``agg_wseg=5``: the refine's horizontal
+       pair restarts every 256 columns (#4 on the segmented view), the
+       426-wide coarse search takes no segments; every launch of a frame
+       replayed against its plain version (exact), the frame counted (the
+       production frame's kernels and counts), against ``impl="xla"`` on
+       the card, timed;
+    b. ``proc_scale=0.5``: the 1280x720 rig processed at 640x360; the
+       processing size, the shifts halved, the depths kept, against
+       ``impl="xla"`` on the card, timed;
+    c. ``exact_speckle=True``: the post-pass on the card against the
+       native flood fill on the host on the same pre-pass disparity (bit
+       for bit), the labelling's rounds, the post-pass and the frame timed,
+       against ``impl="xla"`` on the card;
+    d. the separable remap (``remap_separable``, four #7 launches an image)
+       on a 720p calibration with rotation and distortion: each launch
+       against ``shift_gather_plain`` (exact), the result against the exact
+       ``remap`` (the reference test's tolerances), both forms timed;
+    e. the autotune: ``tune_stats_impl`` resolves "auto" to the kernel form,
+       both statistics formulations give bit-identical statistics at the
+       refine's recorded launch and the same production frame, and
+       ``timed_best`` times them.
+
+    Returns the separable remap's entry of the #7 row."""
+    import dataclasses
+
+    from stereovision_tpu_torch.core import geometry as geom
+    from stereovision_tpu_torch.core import image as im
+    from stereovision_tpu_torch.ops import native, sgm_cuda
+    from stereovision_tpu_torch.pipeline import DepthPipeline
+    from stereovision_tpu_torch.stereo import autotune, production_preset, sgm
+    from stereovision_tpu_torch.stereo import speckle_ccl
+
+    left_np, right_np = planes
+    targets = [(sgm_cuda, name) for name in KERNELS]
+
+    def against_plain(name, pipe, params, shape, **options):
+        res = pipe(left_np, right_np)
+        ref = DepthPipeline(cal, dataclasses.replace(params, impl="xla"), min_depth=0.2,
+                            max_depth=4.0, **options)(left_np, right_np)
+        torch.cuda.synchronize()
+        check(tuple(res.disparity.shape) == shape, f"{name}: shape {tuple(res.disparity.shape)}")
+        sentinel = params.min_disparity - 1
+        check(torch.equal(res.disparity > sentinel, ref.disparity > sentinel),
+              f"{name}: valid differs from the plain path")
+        d_err = (res.disparity - ref.disparity).abs().max().item()
+        check(d_err <= 1e-4, f"{name}: disparity differs from the plain path by {d_err}")
+        z_err = ((res.depth_m - ref.depth_m).abs()
+                 / ref.depth_m.abs().clamp(min=1e-6)).max().item()
+        check(z_err <= 1e-6, f"{name}: depth differs from the plain path by rtol {z_err}")
+        return res, d_err
+
+    def frame_time(name, pipe):
+        for _ in range(WARMUP):
+            pipe(left_np, right_np)
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: pipe(left_np, right_np), FRAMES, warmup=0)
+        print(f"frame {name}: {ms:.3f} ms/frame, {1e3 / ms:.2f} frames/s ({FRAMES} timed frames "
+              f"after {WARMUP} warm-up; the unsegmented production frame {prod_ms:.3f} ms in "
+              f"phase 5), card {card}")
+        return ms
+
+    def medians(name, res, scale):
+        y0, x0, bh, bw = (int(v * scale) for v in BOX)
+        m = int(16 * scale)
+        regions = {"box": ((slice(y0 + m, y0 + bh - m), slice(x0 + m, x0 + bw - m)),
+                           BOX_SHIFT * scale),
+                   "background": ((slice(m, -m), slice(int(80 * scale),
+                                                       x0 - int((BOX_SHIFT - SHIFT) * scale) - m)),
+                                  SHIFT * scale)}
+        for rname, (region, true_d) in regions.items():
+            ok = res.confidence[region] > 0
+            check(ok.float().mean().item() > 0.5, f"{name}: too few confident {rname} pixels")
+            med = res.disparity[region][ok].median().item()
+            z_med = res.depth_m[region][ok].median().item()
+            z_true = FOCAL * abs(TX_CM) / 100.0 / (true_d / scale)
+            check(abs(med - true_d) < 1.0, f"{name}: {rname} median disparity {med} vs {true_d}")
+            check(abs(z_med - z_true) < 0.02 * z_true,
+                  f"{name}: {rname} median depth {z_med} m vs {z_true} m")
+            print(f"{name}: {rname} median disparity {med} (true {true_d}), depth {z_med:.4f} m "
+                  f"(true {z_true:.4f} m)")
+
+    # -- 11a. segmented horizontal scans --------------------------------------
+    p_seg = dataclasses.replace(production_preset(), agg_wseg=5)
+    pipe = DepthPipeline(cal, p_seg, min_depth=0.2, max_depth=4.0)
+    with Recorder(torch, targets) as rec:
+        pipe(left_np, right_np)
+        torch.cuda.synchronize()
+    duals = [tuple(a[0].shape) for a, _ in rec.calls["aggregate_dual"]]
+    seg_view, coarse = (5 * (H + H // 3), W // 5, 32), (H // 3, W // 3, -(-D // 3))
+    check(seg_view in duals and coarse in duals,
+          f"agg_wseg=5: aggregate_dual at {duals}, not the refine's segmented view "
+          f"{seg_view} and the coarse search's {coarse}")
+    parity(torch, sgm_cuda, rec.calls, "production agg_wseg=5")
+    del rec
+    sgm_cuda.reset_launch_counts()
+    pipe(left_np, right_np)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in sgm_cuda.launch_counts().items() if k in prod_launches}
+    print(f"launches in one agg_wseg=5 production frame: {counts}")
+    check(counts == prod_launches,
+          f"agg_wseg=5: launches {counts}, not the production frame's {prod_launches}")
+    _, d_err = against_plain("agg_wseg=5", pipe, p_seg, (H, W))
+    print(f"pipeline production agg_wseg=5: matches the plain path (disparity max abs err {d_err}); "
+          f"aggregate_dual at {sorted(set(duals))}")
+    seg_ms = frame_time("production agg_wseg=5", pipe)
+
+    # -- 11b. proc_scale -------------------------------------------------------
+    p = production_preset()
+    pipe = DepthPipeline(cal, p, min_depth=0.2, max_depth=4.0, proc_scale=0.5)
+    check(pipe.proc_size == (W // 2, H // 2), f"proc_scale=0.5: proc_size {pipe.proc_size}")
+    sgm_cuda.reset_launch_counts()
+    pipe(left_np, right_np)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in sgm_cuda.launch_counts().items() if k in prod_launches}
+    print(f"launches in one proc_scale=0.5 production frame: {counts}")
+    for k in ("census_words", "cost_volume", "aggregate_dual", "wta_stats_from_duals",
+              "right_disparity", "shift_gather", "speckle_counts", "nearest_valid_lohi"):
+        check(counts[k] > 0, f"proc_scale=0.5: kernel {k} was not launched")
+    res, d_err = against_plain("proc_scale=0.5", pipe, p, (H // 2, W // 2), proc_scale=0.5)
+    print(f"pipeline production proc_scale=0.5: {pipe.size} processed at {pipe.proc_size}, "
+          f"focal {pipe.focal:.4f} px, matches the plain path (disparity max abs err {d_err})")
+    medians("proc_scale=0.5", res, 0.5)
+    half_ms = frame_time("production proc_scale=0.5", pipe)
+
+    # -- 11c. the exact speckle post-pass --------------------------------------
+    pipe = DepthPipeline(cal, p, min_depth=0.2, max_depth=4.0, exact_speckle=True)
+    check(pipe.params.speckle_window_size == 0, "exact_speckle: the engine kept its speckle stage")
+    pre = pipe._run(left_np, right_np)[0]
+    sp = pipe._speckle_params
+    d_dev, v_dev = sgm.exact_speckle_postpass(pre, sp)
+    d_nat, v_nat = sgm.exact_speckle_postpass(pre.cpu(), sp, impl="native")
+    torch.cuda.synchronize()
+    check(d_dev.is_cuda and torch.equal(d_dev.cpu(), d_nat) and torch.equal(v_dev.cpu(), v_nat),
+          "exact_speckle: the post-pass on the card differs from the native flood fill")
+    _, rounds = speckle_ccl.label_components_counted(pre, sp.speckle_range)
+    removed = int((v_dev != (pre > sp.min_disparity - 1)).sum())
+    post_ms = cuda_ms(torch, lambda: sgm.exact_speckle_postpass(pre, sp), 10, warmup=2)
+    t0 = time.perf_counter()
+    native.filter_speckles(pre.cpu().numpy(), sp.min_disparity - 1.0, sp.speckle_window_size,
+                           sp.speckle_range)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    res, d_err = against_plain("exact_speckle", pipe, p, (H, W), exact_speckle=True)
+    print(f"exact speckle post-pass at {H}x{W}: equal to the native flood fill, {removed} pixels "
+          f"removed, {rounds} labelling rounds, {post_ms:.3f} ms on the card (events around "
+          f"10 calls, one host sync a round), the native flood fill {native_ms:.3f} ms on the "
+          f"host; the frame matches the plain path (disparity max abs err {d_err})")
+    speckle_ms = frame_time("production exact_speckle", pipe)
+
+    # -- 11d. the separable remap -----------------------------------------------
+    K = torch.tensor([[FOCAL, 0, (W - 1) / 2], [0, FOCAL, (H - 1) / 2], [0, 0, 1]],
+                     dtype=torch.float64)
+    dist = torch.tensor(SEP_DIST, dtype=torch.float64)
+    R = geom.rodrigues(torch.tensor(SEP_ROTATION, dtype=torch.float64))
+    R1, R2, P1, P2, _ = geom.stereo_rectify(K, dist, K, dist, (W, H), R,
+                                            torch.tensor(SEP_T_CM, dtype=torch.float64), alpha=0.0)
+    maps, preps = [], []
+    for Rr, Pr in ((R1, P1), (R2, P2)):
+        mx, my = geom.init_undistort_rectify_map(*(t.cuda() for t in (K, dist, Rr, Pr)), (W, H))
+        prep = im.prepare_separable_remap(mx, my)
+        check(prep is not None, "the 720p calibration's maps do not take the separable remap")
+        my_adj, valid, rx, ry = prep
+        maps.append((mx, my))
+        preps.append((torch.from_numpy(my_adj).cuda(), torch.from_numpy(valid).cuda(), rx, ry))
+    imgs = [torch.from_numpy(a).cuda() for a in (left_np, right_np)]
+
+    def separable():
+        return [im.remap_separable(img, mx, my_adj, valid, rx, ry)
+                for img, (mx, _), (my_adj, valid, rx, ry) in zip(imgs, maps, preps)]
+
+    def exact():
+        return [im.remap(img, mx, my) for img, (mx, my) in zip(imgs, maps)]
+
+    with Recorder(torch, [(sgm_cuda, "shift_gather")]) as rec:
+        got = separable()
+        torch.cuda.synchronize()
+    calls = rec.calls["shift_gather"]
+    err = parity(torch, sgm_cuda, {"shift_gather": calls}, "remap_separable")
+    sgm_cuda.reset_launch_counts()
+    separable()
+    torch.cuda.synchronize()
+    n_launch = sgm_cuda.launch_counts()["shift_gather"]
+    check(n_launch == 8 == len(calls), f"remap_separable: {n_launch} shift_gather launches, not 8")
+    for g, w in zip(got, exact()):
+        check(torch.equal(g == 0, w == 0), "remap_separable zeroes other pixels than remap")
+        inside = w != 0
+        med = (g - w).abs()[inside].median().item()
+        check(med < 0.2, f"remap_separable: median abs difference {med} from remap")
+    ranges = [(rx, ry) for *_, rx, ry in preps]
+    sep_ms = cuda_ms(torch, separable, 20, warmup=3)
+    sep_dev = device_ms(separable, "remap_separable")
+    exact_ms = cuda_ms(torch, exact, 20, warmup=3)
+    exact_dev = device_ms(exact, "remap")
+
+    def replay(fn):
+        return lambda: [fn(*a, **kw) for a, kw in calls]
+
+    k_ms = cuda_ms(torch, replay(sgm_cuda.shift_gather), 20, warmup=3)
+    k_dev = device_ms(replay(sgm_cuda.shift_gather), "shift_gather (remap_separable)")
+    k_plain = cuda_ms(torch, replay(sgm_cuda.shift_gather_plain), 5)
+    gathers = []
+    for (srcv, off, _), _ in calls:
+        x = torch.arange(off.shape[-1], device=off.device)
+        gathers.append((srcv, (x - off.long()).clamp(min=0).expand(srcv.shape).contiguous()))
+
+    def gather_all():
+        return [torch.gather(s_, -1, i_) for s_, i_ in gathers]
+
+    lib_ms = cuda_ms(torch, gather_all, 20, warmup=3)
+    lib_dev = device_ms(gather_all, "torch.gather (remap_separable)")
+    nbytes, ops = tally({"shift_gather": calls})
+    b_ms, b_by = bound_ms(nbytes, ops)
+    print(f"remap_separable at {W}x{H} (ranges {ranges}): {sep_ms:.4f} ms for both images, "
+          f"device alone {fmt(sep_dev)}; the exact remap {exact_ms:.4f} ms, device alone "
+          f"{fmt(exact_dev)}; its 8 shift_gather launches {k_ms:.4f} ms, device alone "
+          f"{fmt(k_dev)}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB), plain "
+          f"{k_plain:.3f} ms, torch.gather {lib_ms:.4f} ms (device alone {fmt(lib_dev)}), "
+          f"card {card}")
+
+    # -- 11e. the autotune ---------------------------------------------------------
+    auto = production_preset()
+    check(auto.stats_impl == "auto" and autotune.tune_stats_impl(auto).stats_impl == "pallas",
+          "tune_stats_impl does not resolve 'auto' to the kernel form")
+    pipe = DepthPipeline(cal, auto, min_depth=0.2, max_depth=4.0)
+    with Recorder(torch, [(sgm_cuda, "wta_stats_from_duals")]) as rec:
+        res = pipe(left_np, right_np)
+        torch.cuda.synchronize()
+    hf, hb = max(rec.calls["wta_stats_from_duals"], key=lambda c: c[0][0].shape[0])[0]
+    kernel_stats = sgm_cuda.wta_stats_from_duals(hf, hb)
+    _, *summed_stats = sgm_cuda.sum_wta((hf, hb), emit_sum=False)
+    for a, b in zip(kernel_stats, summed_stats):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"the two statistics forms differ at {tuple(hf.shape)}")
+    xla_stats = DepthPipeline(cal, dataclasses.replace(auto, stats_impl="xla"), min_depth=0.2,
+                              max_depth=4.0)(left_np, right_np)
+    check(torch.equal(res.disparity, xla_stats.disparity)
+          and torch.equal(res.confidence, xla_stats.confidence),
+          "stats_impl='xla' gives another production frame than the kernel form")
+    best, times = autotune.timed_best(
+        {"pallas": sgm_cuda.wta_stats_from_duals,
+         "xla": lambda a, b: sgm_cuda.sum_wta((a, b), emit_sum=False)}, (hf, hb))
+    print(f"autotune: 'auto' resolves to the kernel form; both statistics forms bit-identical "
+          f"at {tuple(hf.shape)} {hf.dtype} and on the production frame; timed_best "
+          f"{ {k: round(v * 1e3, 4) for k, v in times.items()} } ms a call, best {best}")
+    print(f"frames of phase 11 (card {card}): agg_wseg=5 {seg_ms:.3f} ms, proc_scale=0.5 "
+          f"{half_ms:.3f}, exact_speckle {speckle_ms:.3f} (post-pass {post_ms:.3f}, {rounds} "
+          f"rounds), production {prod_ms:.3f}")
+    return {"launches": n_launch, "max_abs_err": err, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": k_plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "remap_separable_ms": sep_ms,
+            "remap_separable_device_ms": sep_dev, "remap_ms": exact_ms,
+            "remap_device_ms": exact_dev,
+            "timed_as": "the 8 shift_gather launches of remap_separable on a 720p pair"}
+
 
 def main() -> int:
     import torch
@@ -1346,6 +1623,9 @@ def main() -> int:
         kname = FULL_KERNELS.get(kname, (kname,))[0]
         next(r for r in rows if r["name"] == kname)["earlier_design_ab"] = ab
     del redesigned
+    torch.cuda.empty_cache()
+    next(r for r in rows if r["name"] == "shift_gather")["separable_remap"] = pipeline_phases(
+        torch, card, cal, planes, launches["production"], frame_ms["production"])
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input

@@ -5,11 +5,14 @@ A second package beside the JAX one, mirroring its layout and names:
 - ``core``    image and geometry operations as plain PyTorch ops
 - ``ops``     hand-written CUDA kernels (``ops/csrc``), each beside its plain
               PyTorch version
-- ``stereo``  the disparity engine (census cost + semi-global aggregation)
-- ``io``      the calibration store
+- ``stereo``  the disparity engine (census cost + semi-global aggregation),
+              the exact speckle filter, evaluation and the session autotune
+- ``io``      the calibration store, frame sources, validators, PLY export
+              and the native frame loader
 - ``parallel`` the (frame, tile) device mesh and the sharded disparity
               engines, approximate and exact
 - ``pipeline`` rectification + disparity + metric depth
+- ``apps``    the depth and disparity-evaluation command lines
 
 The JAX package stays the reference: every part of the port is tested
 against it on the CPU. ROADMAP.md lists what is still to port.

@@ -2,15 +2,18 @@
 
 Counterpart of ``stereovision_tpu/core/image.py``: the same functions with
 the same names, arguments and layouts (channel-last, replicate borders), on
-tensors of any device. Only the pieces the ``DepthPipeline`` of the port
-runs are here; the separable remap comes with a later slice (ROADMAP.md,
-queue 1 item 5).
+tensors of any device. Here are the pieces of the disparity path and its
+apps: the exact remap and its separable form (two passes of the
+``shift_gather`` kernel, #7), resize, median, census, Hamming costs and
+the colormaps. The rest of the reference module comes with ROADMAP.md
+queue 1 items 7 and 8.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
@@ -55,6 +58,80 @@ def remap(img: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.
     if img.ndim == 3:
         valid = valid[..., None]
     return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def warp_axis_shift(src: torch.Tensor, off: torch.Tensor, R: int) -> torch.Tensor:
+    """out[y, x] = lerp(src[y, x + ⌊off⌋], src[y, x + ⌊off⌋ + 1]) along the
+    last axis, |off| < R, replicate borders: two launches of
+    :func:`ops.sgm_cuda.shift_gather` with offsets below 2R + 1 on the
+    edge-padded source (their plain version on CPU tensors). The 1-D step
+    of :func:`remap_separable`."""
+    from stereovision_tpu_torch.ops import sgm_cuda
+
+    off = off.clamp(-R, R - 1 - 1e-4)
+    fl = torch.floor(off)
+    frac = off - fl
+    P = _pad_replicate(src, R, -1).contiguous()
+    offs = (R - fl).to(torch.int32)                     # ∈ [1, 2R]
+    offs_full = torch.nn.functional.pad(offs, (2 * R, 0))
+    g0 = sgm_cuda.shift_gather(P, offs_full, 2 * R + 1)[:, 2 * R:]
+    g1 = sgm_cuda.shift_gather(P, offs_full - 1, 2 * R + 1)[:, 2 * R:]
+    # g0·(1 − frac) + g1·frac with the second product fused into the add:
+    # the form XLA compiles the reference's lerp to under jit
+    return torch.addcmul(g0 * (1.0 - frac), g1, frac)
+
+
+def remap_separable(img: torch.Tensor, map_x: torch.Tensor, map_y_adj: torch.Tensor,
+                    valid: torch.Tensor, range_x: int, range_y: int) -> torch.Tensor:
+    """:func:`remap` for smooth fixed maps (stereo rectification) as two
+    1-D :func:`warp_axis_shift` passes, down the columns then along the
+    rows, instead of the per-element 2-D gather. The Catmull–Smith form:
+    the vertical pass reads the adjusted map ``map_y_adj`` (map_y at the
+    inverse of map_x along x), so the horizontal pass's source columns
+    carry the rows the true map asks for. ``map_y_adj``, ``valid`` (the
+    true map's in-image mask; outside it the result is 0, as
+    :func:`remap`'s) and the displacement bounds come from
+    :func:`prepare_separable_remap`. (H, W) float32 images."""
+    H, W = img.shape[:2]
+    xs = torch.arange(W, dtype=torch.float32, device=img.device)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=img.device)[:, None]
+    tmp = warp_axis_shift(img.T.contiguous(), (map_y_adj - ys).T.contiguous(), range_y).T
+    out = warp_axis_shift(tmp.contiguous(), map_x - xs, range_x)
+    return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def prepare_separable_remap(map_x, map_y, max_range: int = 96):
+    """The host's preparation of :func:`remap_separable` from concrete maps
+    (tensors or arrays): ``(map_y_adj, valid, range_x, range_y)`` as numpy,
+    or None where the decomposition does not apply (map_x decreasing along
+    a row, which rectification maps never do, or a displacement bound past
+    ``max_range``)."""
+    map_x = np.asarray(torch.as_tensor(map_x).cpu())
+    map_y = np.asarray(torch.as_tensor(map_y).cpu())
+    H, W = map_x.shape
+    xs = np.arange(W, dtype=np.float32)
+    ys = np.arange(H, dtype=np.float32)[:, None]
+    # float32 maps can tie between adjacent columns: only a real decrease
+    # refuses, and a negligible ramp breaks ties so each row's inverse is
+    # well defined
+    if np.diff(map_x, axis=1).min() < -1e-3:
+        return None
+    my_adj = np.empty_like(map_y)
+    tie_break = 1e-4 * xs
+    for v in range(H):
+        # x' with map_x(v, x') = x (a monotone inverse, clamped at the
+        # ends), then the true map's row at that source column
+        row = np.maximum.accumulate(map_x[v].astype(np.float64)) + tie_break
+        inv = np.interp(xs, row, xs)
+        my_adj[v] = np.interp(inv, xs, map_y[v])
+    valid = (map_x >= 0) & (map_x <= W - 1) & (map_y >= 0) & (map_y <= H - 1)
+    if not valid.any():
+        return None
+    rx = int(np.ceil(np.abs(map_x - xs[None, :])[valid].max())) + 2
+    ry = int(np.ceil(np.abs(my_adj - ys).max())) + 2
+    if max(rx, ry) > max_range:
+        return None
+    return my_adj.astype(np.float32), valid, max(rx, 1), max(ry, 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,3 +336,31 @@ def popcount32(v: torch.Tensor) -> torch.Tensor:
 def hamming_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamming distance summed over the trailing word axis (int32)."""
     return popcount32(a ^ b).sum(dim=-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Colormaps (turbo and jet lookup tables)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _turbo_lut() -> np.ndarray:
+    """256×3 RGB turbo table (Google Turbo, matplotlib's registered map)."""
+    import matplotlib
+
+    return (matplotlib.colormaps["turbo"](np.linspace(0, 1, 256))[:, :3] * 255).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jet_lut() -> np.ndarray:
+    import matplotlib
+
+    return (matplotlib.colormaps["jet"](np.linspace(0, 1, 256))[:, :3] * 255).astype(np.float32)
+
+
+def apply_colormap(img_u8: torch.Tensor, cmap: str = "turbo", bgr: bool = True) -> torch.Tensor:
+    """uint8 image (H, W) → (H, W, 3) float32 colours of ``cmap`` ("turbo"
+    or "jet"), BGR unless ``bgr=False`` (cv2.applyColorMap's role)."""
+    lut = torch.from_numpy(_turbo_lut() if cmap == "turbo" else _jet_lut()).to(img_u8.device)
+    rgb = lut[img_u8.to(torch.int64).clamp(0, 255)]
+    return rgb.flip(-1) if bgr else rgb

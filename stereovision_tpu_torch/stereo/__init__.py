@@ -1,3 +1,4 @@
+from stereovision_tpu_torch.stereo.autotune import tune_stats_impl  # noqa: F401
 from stereovision_tpu_torch.stereo.sgm import (  # noqa: F401
     SGMParams,
     compute_disparity,
@@ -5,5 +6,4 @@ from stereovision_tpu_torch.stereo.sgm import (  # noqa: F401
     disparity_with_confidence,
     production_preset,
     reference_preset,
-    resolve_stats_impl,
 )

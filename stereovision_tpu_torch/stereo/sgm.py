@@ -2,13 +2,13 @@
 
 Counterpart of ``stereovision_tpu/stereo/sgm.py``: census (5×5 by default),
 Hamming cost, semi-global aggregation over four paths (→ ← ↓ ↑) or the
-horizontal pair, winner-take-all with parabola subpixel and the uniqueness
-ratio, the left-right check, windowed speckle suppression and a median
-filter; the coarse-to-fine modes ``"hier"`` and ``"hier2"`` (the production
-configuration, :func:`production_preset`) with census arbitration and fill;
-and ``fill_invalid``. ``SGMParams`` keeps every field of the reference so
-that a configuration carries across unchanged; what this port does not run
-yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+horizontal pair (with ``agg_wseg`` column segments), winner-take-all with
+parabola subpixel and the uniqueness ratio, the left-right check, windowed
+speckle suppression and a median filter; the coarse-to-fine modes ``"hier"``
+and ``"hier2"`` (the production configuration, :func:`production_preset`)
+with census arbitration and fill; ``fill_invalid``; and the exact speckle
+post-pass (:func:`exact_speckle_postpass`). ``SGMParams`` keeps every field
+of the reference so that a configuration carries across unchanged.
 
 ``impl``: ``"xla"`` runs the plain PyTorch path (the role ``impl="xla"``
 plays in the reference: float32 cost volumes, a scan per direction, gathers
@@ -93,7 +93,7 @@ def reference_preset(mode: str = "hier") -> SGMParams:
 def production_preset() -> SGMParams:
     """The reference's headline 720p configuration (hier2, R=32 windows,
     horizontal paths, census arbitration and fill). ``stats_impl="auto"``
-    runs the statistics kernel (:func:`resolve_stats_impl`)."""
+    runs the statistics kernel (:func:`stereo.autotune.tune_stats_impl`)."""
     return SGMParams(
         num_disparities=320, mode="hier2", refine_range=32, paths=2,
         coarse_scale=3, census_kill=6.0, fill_invalid=True,
@@ -116,25 +116,9 @@ def _resolve_impl(impl: str) -> str:
     return "xla" if impl == "xla" else "pallas"
 
 
-def resolve_stats_impl(p: SGMParams) -> SGMParams:
-    """``stats_impl="auto"`` → ``"pallas"``, the statistics kernel. The
-    reference's autotune (``stereo/autotune.py``) resolves it so on every
-    backend but the TPU, and both forms give the same numbers (ROADMAP.md
-    queue 1 item 6 keeps the autotune)."""
-    if p.stats_impl == "auto":
-        return dataclasses.replace(p, stats_impl="pallas")
-    return p
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 def check_params(p: SGMParams) -> SGMParams:
-    """``p`` if this port runs it, else ``NotImplementedError`` naming the
-    ROADMAP.md item that brings what it asks for."""
-    if p.agg_wseg > 1:
-        raise _unported("agg_wseg > 1", "queue 1 item 6")
+    """``p`` if this port runs it; an unknown impl raises ``ValueError``,
+    ``impl="pallas_interpret"`` ``NotImplementedError``."""
     _resolve_impl(p.impl)
     return p
 
@@ -174,24 +158,48 @@ def cost_from_census(cl: torch.Tensor, cr: torch.Tensor, p: SGMParams) -> torch.
 # ---------------------------------------------------------------------------
 
 
+def _effective_wseg(p: SGMParams, W: int, H: int) -> int:
+    """``agg_wseg`` where it applies, else 1: the horizontal pair only, and
+    the reference's layout gate (``W % (128·agg_wseg) == 0`` and
+    ``H % 8 == 0``), which fixes where the scans restart under every impl."""
+    if p.paths != 2 or p.agg_wseg <= 1:
+        return 1
+    ok = W % (128 * p.agg_wseg) == 0 and H % 8 == 0
+    return p.agg_wseg if ok else 1
+
+
+def _segments(vol: torch.Tensor, seg: int) -> torch.Tensor:
+    """(H, W, D) → the (H·seg, W/seg, D) view whose rows are the column
+    segments: a scan along its rows restarts every W/seg columns."""
+    H, W, D = vol.shape
+    return vol.reshape(H * seg, W // seg, D)
+
+
 def aggregate(cost: torch.Tensor, p: SGMParams) -> torch.Tensor:
     """Semi-global aggregation of (H, W, D) → summed float32 (H, W, D) over
     the horizontal pair (``paths=2``) or all four paths (→ ← ↓ ↑): the plain
     scan of each direction (``impl="xla"``), or one
     :func:`sgm_cuda.aggregate_dir` launch per direction adding onto the
     running sum in place (a kernel impl; the reference's kernel branch sums
-    four directions whatever ``paths`` says, ROADMAP.md §3)."""
+    four directions whatever ``paths`` says, ROADMAP.md §3). With
+    ``agg_wseg`` segments (:func:`_effective_wseg`) the horizontal scans
+    restart every W/agg_wseg columns, under both impls."""
+    H, W, D = cost.shape
+    seg = _effective_wseg(p, W, H)
     if _resolve_impl(p.impl) == "xla":
         agg = sgm_cuda.aggregate_dir_plain
-        s = agg(cost, p.p1, p.p2, axis=1)
-        s = s + agg(cost, p.p1, p.p2, axis=1, reverse=True)
+        cs = _segments(cost, seg)
+        s = agg(cs, p.p1, p.p2, axis=1)
+        s = (s + agg(cs, p.p1, p.p2, axis=1, reverse=True)).reshape(H, W, D)
         if p.paths == 2:
             return s
         s = s + agg(cost, p.p1, p.p2, axis=0)
         return s + agg(cost, p.p1, p.p2, axis=0, reverse=True)
     cost = cost.to(torch.float32).contiguous()
-    s = sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=1)
-    sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=1, reverse=True, acc=s)
+    cs = _segments(cost, seg)
+    s = sgm_cuda.aggregate_dir(cs, p.p1, p.p2, axis=1)
+    sgm_cuda.aggregate_dir(cs, p.p1, p.p2, axis=1, reverse=True, acc=s)
+    s = s.reshape(H, W, D)
     if p.paths != 2:
         sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=0, acc=s)
         sgm_cuda.aggregate_dir(cost, p.p1, p.p2, axis=0, reverse=True, acc=s)
@@ -300,11 +308,14 @@ def _vol_dtype(p: SGMParams) -> torch.dtype:
     return torch.int8 if (n_bits + p.p2) <= 127 else torch.int16
 
 
-def _kernel_costs(left, right, p: SGMParams, cl=None, cr=None, crop: int = 0):
+def _kernel_costs(left, right, p: SGMParams, cl=None, cr=None, crop: int = 0,
+                  strips: int = 1):
     """The kernel path's head: census words of both images (or
     ``cl``/``cr``) → one int8 (H, W, D) cost volume, less ``crop`` rows at
     each end (rows that only feed the census windows) → the horizontal dual
-    sweep. Returns (cost, (hf, hb))."""
+    sweep, on the segmented view where ``agg_wseg`` applies to the strips'
+    height (every row's scan is its own, so the segments of all rows go in
+    one launch). Returns (cost, (hf, hb))."""
     n_bits = p.census_ksize * p.census_wsize - 1
     if cl is None:
         cl = sgm_cuda.census_words(left, p.census_ksize, p.census_wsize)
@@ -313,7 +324,11 @@ def _kernel_costs(left, right, p: SGMParams, cl=None, cr=None, crop: int = 0):
     cost = sgm_cuda.cost_volume(cl, cr, p.num_disparities, p.min_disparity, n_bits)
     if crop:
         cost = cost[crop:-crop]
-    return cost, sgm_cuda.aggregate_dual(cost, p.p1, p.p2, axis=1, out_dtype=_vol_dtype(p))
+    H, W, D = cost.shape
+    seg = _effective_wseg(p, W, H // strips)
+    hf, hb = sgm_cuda.aggregate_dual(_segments(cost, seg), p.p1, p.p2, axis=1,
+                                     out_dtype=_vol_dtype(p))
+    return cost, (hf.reshape(H, W, D), hb.reshape(H, W, D))
 
 
 def _kernel_select(vols, p: SGMParams, lr_rows: int | None = None):
@@ -351,7 +366,7 @@ def _kernel_search(left, right, p: SGMParams, strips: int = 1, lr_rows: int | No
     seams), then :func:`_kernel_select`. Every kernel works per row except
     the vertical sweep, so the strips share one launch of each. Returns
     (disp, valid, best cost)."""
-    cost, vols = _kernel_costs(left, right, p, cl, cr)
+    cost, vols = _kernel_costs(left, right, p, cl, cr, strips=strips)
     if p.paths == 4:
         hs = cost.shape[0] // strips
         sweeps = [sgm_cuda.aggregate_dual(cost[g * hs:(g + 1) * hs], p.p1, p.p2, axis=0,
@@ -846,6 +861,39 @@ def _refine_two_windows(left, right, shift_a, shift_b, p: SGMParams, cl1=None, c
         return x[H:].repeat_interleave(3, dim=0)[:H]
 
     return ((disp2[:H], valid2[:H], best2[:H]), (up(disp2), up(valid2), up(best2)))
+
+
+def exact_speckle_postpass(disp, params: SGMParams, impl: str = "device"):
+    """The exact cv2.filterSpeckles post-pass (4-connected components), in
+    place of the windowed approximation of :func:`_speckle_suppress`.
+
+    ``disp`` is a finished disparity map (a tensor or an array, float px)
+    whose invalid pixels carry ``min_disparity − 1``; returns (disp, valid)
+    with the components of at most ``speckle_window_size`` pixels set to
+    ``min_disparity − 1`` too. Run the engine with ``speckle_window_size=0``
+    to replace the approximation rather than stack the two.
+
+    ``impl="device"``: the connected-component labelling of
+    :mod:`stereo.speckle_ccl` on ``disp``'s device. ``impl="native"``: the
+    host flood fill of ``native/speckle.cpp`` (:mod:`ops.native`), which
+    returns CPU tensors and raises where its library cannot be built."""
+    if impl not in ("device", "native"):
+        raise ValueError(f"impl must be 'device' or 'native', got {impl!r}")
+    sentinel = float(params.min_disparity) - 1.0
+    d = torch.as_tensor(disp).to(torch.float32)
+    if params.speckle_window_size > 0:
+        if impl == "device":
+            from stereovision_tpu_torch.stereo.speckle_ccl import filter_speckles_exact
+
+            d, _ = filter_speckles_exact(d, sentinel, params.speckle_window_size,
+                                         params.speckle_range)
+        else:
+            from stereovision_tpu_torch.ops import native
+
+            d = torch.from_numpy(native.filter_speckles(
+                d.cpu().numpy(), sentinel, params.speckle_window_size,
+                params.speckle_range)[0])
+    return d, d > sentinel
 
 
 # ---------------------------------------------------------------------------

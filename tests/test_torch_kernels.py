@@ -1497,3 +1497,48 @@ def test_measurement_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         bench_cuda.right_disparity_variants(i16.transpose(0, 1), "in_place")
     assert sgm_cuda.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The kernels on the paths of agg_wseg and the separable remap
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,seg", [((24, 1280, 32), 5), ((16, 256, 107), 2),
+                                       ((9, 640, 32), 5)])
+def test_aggregate_dual_kernel_on_the_segmented_view(cuda, shape, seg):
+    """#4 on ``agg_wseg``'s (H·seg, W/seg, D) view of a cost volume: each
+    segment's scans restart at its first column, as on separate volumes."""
+    H, W, D = shape
+    cost = torch.from_numpy(RNG.integers(0, 61, size=shape).astype(np.int8)).to(cuda)
+    view = cost.reshape(H * seg, W // seg, D)
+    got = sgm_cuda.aggregate_dual(view, 8.0, 96.0, axis=1, out_dtype=torch.int8)
+    torch.cuda.synchronize()
+    want = sgm_cuda.aggregate_dual_plain(view, 8.0, 96.0, axis=1, out_dtype=torch.int8)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    first = sgm_cuda.aggregate_dual_plain(cost[:, :W // seg].contiguous(), 8.0, 96.0, axis=1,
+                                          out_dtype=torch.int8)
+    assert torch.equal(got[0].reshape(H, W, D)[:, :W // seg], first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(64, 200), (720, 1280)])
+def test_remap_separable_runs_shift_gather(cuda, H, W, monkeypatch):
+    """``remap_separable`` on the card: four #7 launches (two a pass),
+    equal bit for bit to the same passes through #7's plain version on
+    the card."""
+    from stereovision_tpu_torch.core import image as im
+
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    mx = (1.01 * xx + 3.0 * np.sin(yy / 23.0) - 4.0).astype(np.float32)
+    my = (yy + 2.0 * np.cos(xx / 37.0) - 0.7).astype(np.float32)
+    img = np.cumsum(RNG.uniform(-3, 3, (H, W)), axis=1).astype(np.float32)
+    my_adj, valid, rx, ry = im.prepare_separable_remap(mx, my)
+    args = [torch.from_numpy(a).to(cuda) for a in (img, mx, my_adj, valid)]
+    sgm_cuda.reset_launch_counts()
+    got = im.remap_separable(*args, rx, ry)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["shift_gather"] == 4
+    monkeypatch.setattr(sgm_cuda, "shift_gather", sgm_cuda.shift_gather_plain)
+    assert torch.equal(got, im.remap_separable(*args, rx, ry))

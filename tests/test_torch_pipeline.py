@@ -153,14 +153,6 @@ def test_from_store(tmp_path, rig_calibration):
                                               stats_impl="pallas")
 
 
-@pytest.mark.parametrize("kw", [{"proc_scale": 0.5}, {"exact_speckle": True}])
-def test_unported_pipeline_options_raise(rig_calibration, kw):
-    from stereovision_tpu_torch.pipeline import DepthPipeline
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DepthPipeline(rig_calibration, _params(), device="cpu", **kw)
-
-
 def test_unported_stats_autotune_and_resize_raise(both_results, rig_calibration):
     """Both are ported now: ``stats_impl="auto"`` resolves to the kernel
     form, as the reference's autotune does off the TPU, and inputs of
@@ -248,6 +240,11 @@ def test_port_imports_no_jax():
             "stereovision_tpu_torch/scripts/_measure.py"} | {
         f"stereovision_tpu_torch/scripts/{name}.py" for name in
         ("bench_agg_step", "bench_wta_variants", "bench_rdisp", "bench_sumwta")} <= scanned
+    # the exact speckle filter, eval, autotune, the native binding, io and the apps
+    assert {f"stereovision_tpu_torch/{name}.py" for name in (
+        "stereo/speckle_ccl", "stereo/eval", "stereo/autotune", "ops/native", "io/frames",
+        "io/validate", "io/pointcloud", "io/native_loader", "apps/__init__", "apps/depth",
+        "apps/eval_disparity")} <= scanned
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in _FORBIDDEN]
     assert not bad, bad

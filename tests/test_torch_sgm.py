@@ -8,7 +8,8 @@ versions) and is held against the reference's ``impl="xla"`` and
 ``impl="pallas_interpret"``: ``valid`` exact, disparity within 1e-4 (the
 reference's own xla-versus-Pallas tolerance) — the full search with and
 without the LR check, ``paths=2``, lane packing, ``fill_invalid`` and the
-coarse-to-fine modes. What the port does not run yet must raise
+coarse-to-fine modes (``agg_wseg``: ``tests/test_torch_stereo.py``). The
+interpret impl, which has no counterpart, must raise
 ``NotImplementedError``.
 """
 
@@ -223,7 +224,7 @@ def test_out_of_slice_configurations_now_match_reference_xla(change):
         _assert_matches(_port_disparity(left, right, jp, impl), ref)
 
 
-@pytest.mark.parametrize("change", [{"agg_wseg": 2}, {"impl": "pallas_interpret"}])
+@pytest.mark.parametrize("change", [{"impl": "pallas_interpret"}])
 def test_out_of_slice_configurations_raise(change):
     p = dataclasses.replace(stereo.SGMParams(num_disparities=16, lr_max_diff=-1), **change)
     left, right = small_pair(16, 32)
