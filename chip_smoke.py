@@ -1338,6 +1338,385 @@ def pipeline_phases(torch, card: str, cal, planes, prod_launches, prod_ms):
             "timed_as": "the 8 shift_gather launches of remap_separable on a 720p pair"}
 
 
+# the fused cell (phase 12): the 1280x720 rig at the reference's
+# PROCESSING_SCALE, processed at 422x236 with D=96
+FUSED_SCALE = 0.33
+FUSED_PROC = (422, 236)
+FUSED_D = 96
+FUSED_CHUNK = 8
+FUSED_CHUNKS = (8, 8, 4)           # the stream's timed frames, FRAMES in all
+FUSED_KERNELS = ("census_words", "cost_volume", "aggregate_dual", "sum_wta", "right_disparity",
+                 "shift_gather", "speckle_counts", "wta_stats_from_duals")
+COVERED = 15.0                     # a covered lens: dark and flat
+
+
+def fused_frames(planes, n: int):
+    """The production rig as a camera's uint8 frames, panning 1 px a frame,
+    its contrast stretched 3x about mid-grey: at the processing size the
+    rig's box-filtered texture has a block std of ~11, which the occlusion
+    detector (blocks below 22.4 score as a covered lens) reads as both
+    cameras occluded, and the hysteresis would turn stereo off after 10
+    frames. The disparities are the rig's."""
+    left, right = (np.clip((p - 127.5) * 3.0 + 127.5, 0, 255).astype(np.uint8) for p in planes)
+    return [(np.roll(left, k, 1), np.roll(right, k, 1)) for k in range(n)]
+
+
+def profiled_device_ms(torch, fn):
+    """(ms of device time in one call of ``fn``: the self device time of
+    every kernel and copy in a ``torch.profiler`` trace, the largest five
+    by name), or (None, why) where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_card = torch.autograd.DeviceType.CUDA
+    rows = [(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0),
+             e.key) for e in prof.key_averages() if e.device_type == on_card]
+    total = sum(t for t, _ in rows) / 1e3
+    if total <= 0:
+        return None, "the profile holds no device time"
+    top = sorted(rows, reverse=True)[:5]
+    return total, [(name[:60], round(t / 1e3, 4)) for t, name in top]
+
+
+class plain_kernels:
+    """While active, every engine kernel wrapper of ``sgm_cuda`` is its plain
+    version: the same frame with no kernel of the repo."""
+
+    def __init__(self, sgm_cuda):
+        self.mod = sgm_cuda
+        self.saved = {}
+
+    def __enter__(self):
+        for name in (*KERNELS, *FULL_KERNELS):
+            self.saved[name] = getattr(self.mod, name)
+            setattr(self.mod, name, plain_of(self.mod, name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def fused_phase(torch, card: str, cal, planes):
+    """Phase 12, the fused three-method path (``FusedPipeline``) on the
+    production rig at ``scale=0.33`` (422x236, D=96; MidasSmall with the
+    bundled weights at 256x256; flow depth; the 1280x720 uint8 frames pan
+    1 px a frame, so the ego-motion is valid and flow joins):
+
+    a. one steady-state frame's kernel launches, each replayed against its
+       plain version (exact); the next frame counted (every kernel of the
+       hierarchical engine must launch, as often as recorded);
+    b. the frame against its twin with every kernel replaced by its plain
+       version on the card, both pipelines fed the same frames: the stereo
+       stage's ``valid`` exact and disparity within 1e-4 px, ``fused``
+       within 0.1, ``mode``, ``camera_moving`` and the occlusion state
+       exact;
+    c. the covered left camera: 14 frames per frame and a chunk of 8 in
+       ``stream`` flip the hysteresis to "left" (the mode to MiDaS or flow);
+       8 uncovered frames in ``stream`` flip it back;
+    d. ``FlowDepthParams(warp_impl="shift")``: its #7 launches against
+       their plain version (exact), the frame timed beside the gather form;
+       MidasSmall on the card against the CPU, and the fused frame, with
+       TF32 on and off;
+    e. ms per frame and frames/s, per frame and in ``stream`` chunks of 8
+       (3 warm-up frames, 20 timed), peak memory; the device time of one
+       frame and of each stage (:func:`profiled_device_ms`), and with the
+       frame's time the device's idle share; each stage's recorded calls
+       replayed alone; the synchronising
+       calls of one steady-state frame and of one stream chunk
+       (``torch.cuda.set_sync_debug_mode("warn")``).
+
+    Returns the launches of one fused frame by kernel name."""
+    import collections
+    import traceback
+    import warnings
+
+    from stereovision_tpu_torch import fusion, mono
+    from stereovision_tpu_torch.mono import depth as mdepth
+    from stereovision_tpu_torch.mono import nn as mnn
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.pipeline import FusedPipeline
+    from stereovision_tpu_torch.stereo import sgm
+
+    frames = fused_frames(planes, 64)
+    covered = np.full((H, W), int(COVERED), np.uint8)
+
+    def make(**kw):
+        p = FusedPipeline(cal, scale=FUSED_SCALE, **kw)
+        check(p.proc == FUSED_PROC and p.sgm.num_disparities == FUSED_D,
+              f"fused cell: processed at {p.proc}, D={p.sgm.num_disparities}")
+        return p
+
+    def run(pipe, ks, left=None):
+        out = None
+        for k in ks:
+            out = pipe(frames[k][0] if left is None else left, frames[k][1], t_now=k / 30.0)
+        return out
+
+    t0 = time.perf_counter()
+    pipe = make()
+    print(f"fused: FusedPipeline built in {time.perf_counter() - t0:.2f} s (processing size "
+          f"{pipe.proc}, D={pipe.sgm.num_disparities}, MidasSmall with the bundled weights)")
+
+    # -- 12a. the frame's launches against their plain versions, counted ----
+    run(pipe, range(2))
+    with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]) as rec:
+        run(pipe, [2])
+        torch.cuda.synchronize()
+    calls = {k: v for k, v in rec.calls.items() if v}
+    err = parity(torch, sgm_cuda, calls, "the fused frame")
+    sgm_cuda.reset_launch_counts()
+    out = run(pipe, [3])
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in sgm_cuda.launch_counts().items() if n}
+    recorded = {FULL_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
+    print(f"launches in one fused frame: {counts}")
+    for k in FUSED_KERNELS:
+        check(counts.get(k, 0) > 0, f"fused: kernel {k} was not launched")
+    check(counts == recorded, f"fused: counted {counts}, recorded {recorded}")
+    check(int(out["mode"]) == 1 and bool(out["camera_moving"]) and out["occlusion"] == "none",
+          f"fused: mode {int(out['mode'])}, moving {bool(out['camera_moving'])}, "
+          f"occlusion {out['occlusion']} on the panning rig")
+    del rec, calls
+
+    # -- 12b. against the same frames with every kernel plain ---------------
+    twin_k, twin_p = make(), make()
+    got = run(twin_k, range(4))
+    with plain_kernels(sgm_cuda):
+        sgm_cuda.reset_launch_counts()
+        want = run(twin_p, range(4))
+        torch.cuda.synchronize()
+        check(not any(sgm_cuda.launch_counts().values()), "the plain twin launched a kernel")
+        from stereovision_tpu_torch.utils.backend import upload
+
+        lr, rr = twin_p._rectify(upload(frames[3][0], twin_p.device),
+                                 upload(frames[3][1], twin_p.device))
+        d_plain, v_plain = sgm.compute_disparity(lr, rr, twin_p.sgm)
+    d_kern, v_kern = sgm.compute_disparity(lr, rr, twin_k.sgm)
+    torch.cuda.synchronize()
+    check(torch.equal(v_kern, v_plain), "fused: the stereo stage's valid differs from the plain")
+    d_err = (d_kern - d_plain).abs()[v_kern].max().item() if bool(v_kern.any()) else 0.0
+    check(d_err <= 1e-4, f"fused: the stereo disparity differs from the plain by {d_err}")
+    f_err = (got["fused"] - want["fused"]).abs().max().item()
+    check(f_err <= 0.1, f"fused: fused differs from the plain twin by {f_err}")
+    for key in ("mode", "camera_moving"):
+        check(torch.equal(got[key], want[key]), f"fused: {key} differs from the plain twin")
+    check(got["occlusion"] == want["occlusion"], "fused: the occlusion state differs")
+    print(f"fused frame against its plain-kernel twin on the card: valid exact "
+          f"({v_kern.float().mean().item():.4f} of pixels), disparity max abs err {d_err}, fused "
+          f"max abs err {f_err}, mode {int(got['mode'])} and occlusion '{got['occlusion']}' equal")
+    del twin_k, twin_p, got, want, lr, rr, d_plain, d_kern
+
+    # -- 12c. the covered camera --------------------------------------------
+    out = run(pipe, range(4, 18), left=covered)
+    check(pipe.hysteresis.state == "left" and int(out["mode"]) in (2, 3),
+          f"fused: 14 covered frames left the state '{pipe.hysteresis.state}', "
+          f"mode {int(out['mode'])}")
+    st = make()
+    lefts = np.stack([covered] * FUSED_CHUNK)
+    rights = np.stack([frames[k][1] for k in range(FUSED_CHUNK)])
+    outs = st.stream(lefts, rights)
+    codes, modes = outs["occlusion_code"].tolist(), outs["mode"].tolist()
+    check(codes[-1] == 1 and st.hysteresis.state == "left" and modes[-1] in (2, 3)
+          and modes[0] == 1, f"fused stream: covered chunk codes {codes}, modes {modes}")
+    outs = st.stream(np.stack([frames[k][0] for k in range(FUSED_CHUNK)]), rights,
+                     t0=FUSED_CHUNK / 30.0)
+    back = outs["mode"].tolist()
+    check(st.hysteresis.state == "none" and back[-1] == 1,
+          f"fused stream: uncovered chunk left '{st.hysteresis.state}', modes {back}")
+    print(f"fused covered camera: per frame '{pipe.hysteresis.state}' after 14 frames (mode "
+          f"{int(out['mode'])}); stream codes {codes}, modes {modes}, then modes {back} "
+          f"uncovered (state '{st.hysteresis.state}')")
+    del st, outs
+
+    # -- 12d. variants: the shift warp, TF32 ----------------------------------
+    shift = make()
+    shift.flow_params = mono.FlowDepthParams(warp_impl="shift")
+    run(shift, range(2))
+    with Recorder(torch, [(sgm_cuda, "shift_gather")]) as rec:
+        run(shift, [2])
+        torch.cuda.synchronize()
+    n_shift = len(rec.calls["shift_gather"])
+    check(n_shift > counts["shift_gather"],
+          f"warp_impl='shift': {n_shift} #7 launches, not more than the gather form's")
+    shift_err = parity(torch, sgm_cuda, {"shift_gather": rec.calls["shift_gather"]},
+                       "the fused frame, warp_impl='shift'")
+    del rec
+    gather = make()
+    run(gather, range(2))
+
+    def frame_ms(p, start):
+        ks = range(start, start + 5)
+        return cuda_ms(torch, lambda: run(p, ks), 2, warmup=1) / len(ks)
+
+    turns = [frame_ms(p, 2 + 10 * i) for i, p in enumerate((gather, shift, shift, gather))]
+    print(f"fused warp_impl='shift': {n_shift} #7 launches a frame (the gather form "
+          f"{counts['shift_gather']}), exact against their plain version; in turns (gather, "
+          f"shift, shift, gather) {[round(t, 3) for t in turns]} ms/frame, card {card}")
+    del shift, gather
+
+    model_cpu = mnn.create_model(device="cpu")
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, (1, 256, 256, 3))
+                         .astype(np.float32))
+    with torch.no_grad():
+        ref = model_cpu(x)
+    span = (ref.max() - ref.min()).item()
+    tf32_was = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    tf32 = {}
+    # (cuDNN's flag, the matmul flag): off, PyTorch's defaults, both on
+    for flags in ((False, False), (True, False), (True, True)):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        with torch.no_grad():
+            got = pipe.model(x.cuda()).cpu()
+        t_twin = make()
+        tf32[flags] = ((got - ref).abs().max().item() / span, run(t_twin, range(3))["fused"])
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    off = tf32[(False, False)]
+    moved = {f: (tf32[f][1] - off[1]).abs() for f in tf32}
+    check(off[0] <= 1e-4, f"MidasSmall on the card differs from the CPU by {off[0]} of its "
+                          f"range with TF32 off")
+    print("MidasSmall on the card against the CPU at 256x256 (max abs err over the output's "
+          f"range, {span:.2f}), and the fused frame against TF32 off (max abs err; pixels above "
+          "0.1): " + "; ".join(
+              f"cudnn.allow_tf32={c} matmul.allow_tf32={m}: {tf32[(c, m)][0]:.3e}, fused "
+              f"{moved[(c, m)].max().item():.4f}, {int((moved[(c, m)] > 0.1).sum())} px"
+              for c, m in tf32))
+    del model_cpu, tf32, moved
+
+    # -- 12e. times ------------------------------------------------------------
+    base = 2 * WARMUP
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    timed = make()
+    run(timed, range(base, base + WARMUP))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(timed, range(base + WARMUP, base + WARMUP + FRAMES))
+    end.record()
+    end.synchronize()
+    frame_ms_ = start.elapsed_time(end) / FRAMES
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"frame fused per frame: {frame_ms_:.3f} ms/frame, {1e3 / frame_ms_:.2f} frames/s "
+          f"(1280x720 uint8 pair -> {FUSED_PROC[0]}x{FUSED_PROC[1]}, D={FUSED_D}, MidasSmall "
+          f"256x256, flow; {FRAMES} timed frames after {WARMUP} warm-up; host-to-device copy "
+          f"included), peak device memory {peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB this "
+          f"script holds, card {card}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = make()
+    k0 = base + WARMUP + FRAMES
+    chunks, k = [], k0 + WARMUP
+    for n in FUSED_CHUNKS:
+        chunks.append((np.stack([frames[j][0] for j in range(k, k + n)]),
+                       np.stack([frames[j][1] for j in range(k, k + n)]), k / 30.0))
+        k += n
+    st.stream(np.stack([frames[j][0] for j in range(k0, k0 + WARMUP)]),
+              np.stack([frames[j][1] for j in range(k0, k0 + WARMUP)]), t0=k0 / 30.0)
+    torch.cuda.synchronize()
+    start.record()
+    for lefts, rights, t in chunks:
+        outs = st.stream(lefts, rights, t0=t)
+    end.record()
+    end.synchronize()
+    stream_ms = start.elapsed_time(end) / FRAMES
+    stream_peak = torch.cuda.max_memory_allocated() - held
+    check(timed.hysteresis.state == "none" and st.hysteresis.state == "none",
+          f"fused: the timed pipelines left stereo ('{timed.hysteresis.state}', "
+          f"'{st.hysteresis.state}')")
+    check(outs["fused"].shape == (FUSED_CHUNKS[-1], FUSED_PROC[1], FUSED_PROC[0])
+          and bool(torch.isfinite(outs["fused"]).all()) and bool(torch.isfinite(outs["meters"]).all()),
+          "fused stream: outputs of the wrong shape or not finite")
+    print(f"frame fused stream: {stream_ms:.3f} ms/frame, {1e3 / stream_ms:.2f} frames/s (chunks "
+          f"{list(FUSED_CHUNKS)} of uint8 frames after a warm-up chunk of {WARMUP}), peak device "
+          f"memory {stream_peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB this script holds, "
+          f"card {card}")
+
+    # the synchronising calls of one steady-state frame and of one chunk
+    def syncs(fn):
+        """Synchronising calls in ``fn``, by the innermost line of the port
+        (or of this script) that made them."""
+        where = collections.Counter()
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                ours = [f for f in traceback.extract_stack()[:-1]
+                        if "stereovision_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+                f = ours[-1] if ours else None
+                where[f"{'/'.join(f.filename.split('/')[-2:])}:{f.lineno} via "
+                      f"{filename.rsplit('/', 1)[-1]}:{lineno}" if f else
+                      f"{filename}:{lineno}"] += 1
+
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum(where.values()), dict(where)
+
+    k = base + WARMUP + FRAMES
+    n_frame, where_frame = syncs(lambda: run(timed, [k]))
+    lefts, rights, t = chunks[0]
+    n_chunk, where_chunk = syncs(lambda: st.stream(lefts, rights, t0=t))
+    print(f"fused synchronising calls (set_sync_debug_mode('warn')): {n_frame} in one "
+          f"steady-state frame {where_frame}, besides the wait for the previous frame's "
+          f"occlusion scores (an event); {n_chunk} in one stream chunk of {FUSED_CHUNK} "
+          f"{where_chunk}")
+
+    # the frame's device time: the kernels' time in a profile of one
+    # steady-state frame (the frame's eigh syncs, so it cannot be captured
+    # in a graph)
+    dev_frame, top = profiled_device_ms(torch, lambda: run(timed, [k + 1]))
+    idle = "not measured" if dev_frame is None else f"{1 - dev_frame / frame_ms_:.3f}"
+    print(f"fused frame on the device: {fmt(dev_frame)} of kernels and copies in one "
+          f"steady-state frame (torch.profiler), per frame {frame_ms_:.3f} ms: the device's "
+          f"idle share {idle}; the largest: {top}; card {card}")
+
+    # stages: one steady-state frame's calls of each, replayed alone
+    stage_targets = [(FusedPipeline, "_rectify"), (fusion, "occlusion_scores"),
+                     (FusedPipeline, "_stereo"), (mnn, "estimate_depth"),
+                     (mono, "flow_depth_step"), (mdepth, "dense_flow"),
+                     (mdepth, "estimate_ego_motion"), (torch.linalg, "eigh"),
+                     (fusion, "calibrate_midas_to_stereo"),
+                     (fusion, "normalize_to_stereo_range"), (fusion, "fuse_depth_maps"),
+                     (FusedPipeline, "_meters")]
+    with Recorder(torch, stage_targets) as rec:
+        run(timed, [k + 2])
+        torch.cuda.synchronize()
+    stage_ms = {}
+    for mod, name in stage_targets:
+        stage_calls = rec.calls[name]
+        fn = getattr(mod, name)
+        ms = cuda_ms(torch, lambda: [fn(*a, **kw) for a, kw in stage_calls], 5)
+        dev, _ = profiled_device_ms(torch, lambda: [fn(*a, **kw) for a, kw in stage_calls])
+        stage_ms[name] = ms
+        print(f"stage fused {name} ({len(stage_calls)} call(s) of one frame): {ms:.3f} ms, "
+              f"device alone {fmt(dev)} ({100 * ms / frame_ms_:.1f}% of the frame)")
+    fusion_ms = sum(stage_ms[n] for n in ("calibrate_midas_to_stereo", "normalize_to_stereo_range",
+                                          "fuse_depth_maps", "_meters"))
+    print(f"fused stages (card {card}): rectification {stage_ms['_rectify']:.3f} ms, occlusion "
+          f"{stage_ms['occlusion_scores']:.3f}, stereo {stage_ms['_stereo']:.3f}, MidasSmall "
+          f"{stage_ms['estimate_depth']:.3f}, flow depth {stage_ms['flow_depth_step']:.3f} "
+          f"(eigh {stage_ms['eigh']:.3f}), calibration and fusion {fusion_ms:.3f}; the frame "
+          f"{frame_ms_:.3f} ms per frame, {stream_ms:.3f} streamed, against the 33.3 ms of a "
+          f"30 frames/s camera")
+    del rec
+    return {"launches": counts, "max_abs_err": max(err, shift_err), "ms": frame_ms_,
+            "stream_ms": stream_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1626,6 +2005,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     next(r for r in rows if r["name"] == "shift_gather")["separable_remap"] = pipeline_phases(
         torch, card, cal, planes, launches["production"], frame_ms["production"])
+    torch.cuda.empty_cache()
+    fused = fused_phase(torch, card, cal, planes)
+    for r in rows:  # launches in one fused frame (its #7 in the gather warp)
+        r["fused_launches"] = fused["launches"].get(r["name"], 0)
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input

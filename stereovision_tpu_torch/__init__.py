@@ -11,8 +11,14 @@ A second package beside the JAX one, mirroring its layout and names:
               and the native frame loader
 - ``parallel`` the (frame, tile) device mesh and the sharded disparity
               engines, approximate and exact
-- ``pipeline`` rectification + disparity + metric depth
-- ``apps``    the depth and disparity-evaluation command lines
+- ``fusion``  camera-occlusion detection, range calibration, the
+              confidence-weighted fusion and its metric depth
+- ``mono``    dense LK optical flow, RANSAC ego-motion, motion-parallax
+              depth, and the neural mono-depth estimator
+- ``models``  the MidasSmall network and a reader of flax checkpoints
+- ``pipeline`` rectification + disparity + metric depth (``DepthPipeline``)
+              and the three-method fusion engine (``FusedPipeline``)
+- ``apps``    the depth, disparity-evaluation and fused-depth command lines
 
 The JAX package stays the reference: every part of the port is tested
 against it on the CPU. ROADMAP.md lists what is still to port.
@@ -30,11 +36,8 @@ from stereovision_tpu_torch.stereo import (  # noqa: E402,F401
 
 
 def __getattr__(name):
-    if name in ("DepthPipeline", "DepthResult"):
+    if name in ("DepthPipeline", "DepthResult", "FusedPipeline"):
         from stereovision_tpu_torch import pipeline
 
         return getattr(pipeline, name)
-    if name == "FusedPipeline":
-        raise AttributeError(
-            "FusedPipeline is not ported yet (ROADMAP.md queue 1 item 7)")
     raise AttributeError(name)

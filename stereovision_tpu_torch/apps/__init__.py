@@ -3,10 +3,12 @@
 
     python -m stereovision_tpu_torch.apps.depth …
     python -m stereovision_tpu_torch.apps.eval_disparity …
+    python -m stereovision_tpu_torch.apps.fused …
 
 Each takes the reference's flags plus ``--device`` (default ``cuda``).
 Image files are read and written with ``imageio`` (and ``cv2`` for PNG
-ground truth), the colormaps come from ``matplotlib``: an app whose
+ground truth), the colormaps come from ``matplotlib``, the fused app's
+text overlay from ``PIL``: an app whose
 packages are missing stops at start with an ``ImportError`` that names them.
 """
 

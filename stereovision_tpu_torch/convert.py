@@ -1,6 +1,6 @@
 """Carry the JAX package's state across to the port.
 
-Both functions take plain Python/numpy data, never JAX objects, so this
+Every function takes plain Python/numpy data, never JAX objects, so this
 module imports nothing of the JAX package.
 """
 
@@ -28,4 +28,97 @@ def calibration_from_numpy(cal: dict, device="cuda") -> dict:
     for key, value in cal.items():
         arr = np.asarray(value)
         out[key] = value if arr.dtype.kind in "USO" else torch.tensor(arr, device=dev)
+    return out
+
+
+def _midas_table() -> dict:
+    """flax variable path → the port's ``MidasSmall`` state_dict key, by
+    module name. Conv kernels map onto ``.weight``, their biases onto
+    ``.bias``; a BatchNorm's scale/bias onto ``.weight``/``.bias`` and its
+    batch statistics mean/var onto ``running_mean``/``running_var``."""
+    from stereovision_tpu_torch.models.midas import ENCODER
+
+    table = {}
+
+    def conv(flax_mod, torch_mod, bias):
+        table[("params", *flax_mod, "kernel")] = f"{torch_mod}.weight"
+        if bias:
+            table[("params", *flax_mod, "bias")] = f"{torch_mod}.bias"
+
+    def bn(flax_mod, torch_mod):
+        for leaf, key in (("scale", "weight"), ("bias", "bias")):
+            table[("params", *flax_mod, leaf)] = f"{torch_mod}.{key}"
+        for leaf, key in (("mean", "running_mean"), ("var", "running_var")):
+            table[("batch_stats", *flax_mod, leaf)] = f"{torch_mod}.{key}"
+
+    conv(("Conv_0",), "stem", False)
+    bn(("BatchNorm_0",), "stem_bn")
+    for i, (_, expand, _, _) in enumerate(ENCODER):
+        blk = f"MBConv_{i}"
+        parts = (("expand_conv", "expand_bn"),) if expand != 1 else ()
+        parts += (("dw", "dw_bn"), ("project", "project_bn"))
+        for j, (c, b) in enumerate(parts):
+            conv((blk, f"Conv_{j}"), f"blocks.{i}.{c}", False)
+            bn((blk, f"BatchNorm_{j}"), f"blocks.{i}.{b}")
+    for j in range(4):  # p32, p16, p8, p4
+        conv((f"Conv_{j + 1}",), f"taps.{j}", False)
+
+    def rcu(flax_mod, torch_mod):
+        conv((*flax_mod, "Conv_0"), f"{torch_mod}.conv0", True)
+        conv((*flax_mod, "Conv_1"), f"{torch_mod}.conv1", True)
+
+    rcu(("ResidualConvUnit_0",), "top_unit")
+    for i in range(4):
+        ff = f"FeatureFusion_{i}"
+        units = ("unit",) if i == 0 else ("skip_unit", "unit")
+        for j, u in enumerate(units):
+            rcu((ff, f"ResidualConvUnit_{j}"), f"fusions.{i}.{u}")
+        conv((ff, "Conv_0"), f"fusions.{i}.out_conv", True)
+    for j, head in enumerate(("head0", "head1", "head2")):
+        conv((f"Conv_{j + 5}",), head, True)
+    return table
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def midas_small_from_flax(variables: dict) -> dict:
+    """flax ``MidasSmall`` variables ({'params', 'batch_stats'}: nested dicts
+    of numpy arrays, as ``models.checkpoint.load_variables`` returns them)
+    → a ``state_dict`` for the port's ``models.midas.MidasSmall``, through
+    an explicit table of module names. Conv kernels go from HWIO to OIHW
+    (a depthwise (kh, kw, 1, C) becomes (C, 1, kh, kw)). Every shape is
+    checked against the port's module; a flax leaf the table does not know,
+    or a parameter of the port's that no leaf fills, raises."""
+    from stereovision_tpu_torch.models.midas import MidasSmall
+
+    want = MidasSmall().state_dict()
+    table = _midas_table()
+    out = {}
+    unknown = []
+    for path, leaf in _leaves(variables):
+        key = table.get(path)
+        if key is None:
+            unknown.append("/".join(path))
+            continue
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
+        if key not in want or tuple(want[key].shape) != arr.shape:
+            raise ValueError(f"shape mismatch mapping {'/'.join(path)} {arr.shape} onto {key} "
+                             f"{tuple(want[key].shape) if key in want else '(no such key)'}")
+        out[key] = torch.tensor(arr, dtype=want[key].dtype)
+    if unknown:
+        raise ValueError(f"flax leaves with no counterpart in the port: {unknown}")
+    for key, t in want.items():  # batch norms' update counters: not in flax
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros_like(t)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise ValueError(f"parameters of the port's MidasSmall that no flax leaf fills: {missing}")
     return out

@@ -4,7 +4,9 @@ Counterpart of the pieces of ``stereovision_tpu/core/geometry.py`` that
 ``DepthPipeline`` runs: axis-angle rotations, undistortion, Bouguet stereo
 rectification (``stereo_rectify``, which ``proc_scale`` re-runs at the
 processing size) and the free-scaling camera matrix, the rectification
-maps, metric depth and the point cloud. Calibration data is float64; the
+maps, metric depth and the point cloud; and the homography fit and its
+application that the fused path's ego-motion runs (:func:`homography_dlt`,
+:func:`apply_homography`). Calibration data is float64; the
 maps are computed in float64 and stored as float32, as in the reference.
 OpenCV's conventions: ``K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]``,
 distortion ``(k1, k2, p1, p2, k3[, k4, k5, k6])`` zero-padded, and ``R, T``
@@ -315,3 +317,61 @@ def reproject_image_to_3d(disparity: torch.Tensor, Q: torch.Tensor) -> torch.Ten
     out = vec @ Q.to(torch.float32).T
     w = out[..., 3:4]
     return out[..., :3] / torch.where(w.abs() < 1e-9, torch.full_like(w, 1e-9), w)
+
+
+# ---------------------------------------------------------------------------
+# Homographies
+# ---------------------------------------------------------------------------
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as products and a sum: full float32 whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says (a TF32 product of pixel
+    coordinates would move a point by tenths of a pixel)."""
+    return (a.unsqueeze(-1) * b.unsqueeze(-3)).sum(dim=-2)
+
+
+def homography_dlt(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Direct linear transform homography from ≥ 4 correspondences.
+
+    src, dst: (…, N, 2). Returns (…, 3, 3) with H[2, 2] = 1. Hartley
+    normalization, then the eigenvector of AᵀA for its smallest eigenvalue
+    (``eigh`` batches, so the RANSAC hypotheses of ``mono.ego`` solve as one
+    call with N = 4). Where that eigenvalue is not simple (a degenerate
+    sample, three points on a line) any vector of its space is a solution,
+    and two libraries need not pick the same one."""
+    def normalize(p):
+        mean = p.mean(dim=-2, keepdim=True)
+        d = torch.sqrt(((p - mean) ** 2).sum(dim=-1, keepdim=True) + 1e-12)
+        scale = (2.0 ** 0.5) / (d.mean(dim=-2, keepdim=True) + 1e-12)
+        pn = (p - mean) * scale
+        s = scale[..., 0, 0]
+        mx, my = mean[..., 0, 0], mean[..., 0, 1]
+        one, zero = torch.ones_like(s), torch.zeros_like(s)
+        T = torch.stack([torch.stack([s, zero, -s * mx], dim=-1),
+                         torch.stack([zero, s, -s * my], dim=-1),
+                         torch.stack([zero, zero, one], dim=-1)], dim=-2)
+        return pn, T
+
+    sn, Ts = normalize(src)
+    dn, Td = normalize(dst)
+    x, y = sn[..., 0], sn[..., 1]
+    u, v = dn[..., 0], dn[..., 1]
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    r1 = torch.stack([x, y, one, zero, zero, zero, -u * x, -u * y, -u], dim=-1)
+    r2 = torch.stack([zero, zero, zero, x, y, one, -v * x, -v * y, -v], dim=-1)
+    A = torch.cat([r1, r2], dim=-2)  # (…, 2N, 9)
+    _, V = torch.linalg.eigh(_matmul(A.transpose(-1, -2), A))
+    Hn = V[..., :, 0].reshape(*V.shape[:-2], 3, 3)
+    # inv_ex: no check of the LU's info, which reads it back to the host
+    H = _matmul(_matmul(torch.linalg.inv_ex(Td)[0], Hn), Ts)
+    h22 = H[..., 2:3, 2:3]
+    return H / torch.where(h22.abs() < 1e-12, 1e-12, h22)
+
+
+def apply_homography(H: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """pts (…, N, 2) → H·pts (…, N, 2), the perspective division guarded
+    (cv2.perspectiveTransform)."""
+    v = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+    w = _matmul(v, H.transpose(-1, -2))
+    return w[..., :2] / torch.where(w[..., 2:3].abs() < 1e-12, 1e-12, w[..., 2:3])

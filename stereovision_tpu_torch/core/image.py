@@ -5,8 +5,10 @@ the same names, arguments and layouts (channel-last, replicate borders), on
 tensors of any device. Here are the pieces of the disparity path and its
 apps: the exact remap and its separable form (two passes of the
 ``shift_gather`` kernel, #7), resize, median, census, Hamming costs and
-the colormaps. The rest of the reference module comes with ROADMAP.md
-queue 1 items 7 and 8.
+the colormaps; and the pieces of the fused path: luma, Gaussian, bilateral
+and box filters, the occlusion detector's block statistics and histogram,
+and the min-max normalization. The rest of the reference module comes with
+ROADMAP.md queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -15,6 +17,16 @@ import functools
 
 import numpy as np
 import torch
+
+
+# BT.601 luma weights, cv2.cvtColor(..., COLOR_BGR2GRAY)'s
+_BGR_LUMA = (0.114, 0.587, 0.299)
+
+
+def grayscale_bgr(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) BGR → (..., H, W) luma, cv2 BGR2GRAY's weights."""
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    return _BGR_LUMA[0] * b + _BGR_LUMA[1] * g + _BGR_LUMA[2] * r
 
 
 def _bilinear_gather(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -262,6 +274,99 @@ def _median_pairs(n: int) -> tuple:
             needed.add(a)
             needed.add(b)
     return tuple(reversed(kept))
+
+
+# cv2 getGaussianKernel's fixed tables for sigma <= 0 and ksize <= 7
+_SMALL_GAUSSIAN = {
+    1: [1.0],
+    3: [0.25, 0.5, 0.25],
+    5: [0.0625, 0.25, 0.375, 0.25, 0.0625],
+    7: [0.03125, 0.109375, 0.21875, 0.28125, 0.21875, 0.109375, 0.03125],
+}
+
+
+def _gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
+    if sigma <= 0 and ksize in _SMALL_GAUSSIAN:
+        return np.asarray(_SMALL_GAUSSIAN[ksize], np.float32)
+    if sigma <= 0:  # cv2's rule for sigma auto-derivation
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    x = np.arange(ksize) - (ksize - 1) / 2
+    k = np.exp(-(x**2) / (2 * sigma**2))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float = 0.0) -> torch.Tensor:
+    """Separable Gaussian blur on (..., H, W) with replicate borders
+    (cv2.GaussianBlur): each pass the weighted sum of the k shifted views."""
+    k = _gaussian_kernel1d(ksize, sigma).tolist()
+    pad = ksize // 2
+
+    def conv1d(x, axis):
+        xp = _pad_replicate(x, pad, axis)
+        n = x.shape[axis]
+        out = xp.narrow(axis, 0, n) * k[0]
+        for i in range(1, ksize):
+            out = out + xp.narrow(axis, i, n) * k[i]
+        return out
+
+    return conv1d(conv1d(img, -1), -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _bilateral_spatial(ksize: int, sigma_space: float, device: torch.device) -> torch.Tensor:
+    """The flattened spatial weights of :func:`bilateral_filter`, 0 outside
+    the inscribed circle; made once per device (a copy from the host each
+    call would wait for the card)."""
+    pad = ksize // 2
+    ys, xs = np.mgrid[-pad:pad + 1, -pad:pad + 1]
+    mask = np.sqrt(xs**2 + ys**2) <= pad
+    spatial = (np.exp(-(xs**2 + ys**2) / (2 * sigma_space**2)) * mask).reshape(-1)
+    return torch.as_tensor(spatial.astype(np.float32), device=device)
+
+
+def bilateral_filter(img: torch.Tensor, d: int = 9, sigma_color: float = 75.0,
+                     sigma_space: float = 75.0) -> torch.Tensor:
+    """Edge-preserving bilateral filter on (..., H, W), cv2.bilateralFilter's
+    weights: the window restricted to its inscribed circle (radius d/2),
+    replicate borders."""
+    ksize = d if d % 2 == 1 else d + 1
+    spatial_w = _bilateral_spatial(ksize, float(sigma_space), img.device).to(img.dtype)
+    win = _window_stack(img, ksize)
+    diff = win - img[..., None]
+    wgt = torch.exp(-(diff * diff) / (2 * sigma_color * sigma_color)) * spatial_w
+    return (wgt * win).sum(dim=-1) / (wgt.sum(dim=-1) + 1e-12)
+
+
+def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Mean filter via two 1-D passes (replicate borders)."""
+    return window_sum(img, ksize) * (1.0 / (ksize * ksize))
+
+
+def block_std(img: torch.Tensor, block: int = 48) -> torch.Tensor:
+    """Population std over non-overlapping block×block tiles →
+    (..., H//block, W//block)."""
+    H, W = img.shape[-2], img.shape[-1]
+    Hc, Wc = (H // block) * block, (W // block) * block
+    x = img[..., :Hc, :Wc]
+    x = x.reshape(*x.shape[:-2], Hc // block, block, Wc // block, block)
+    return x.std(dim=(-3, -1), correction=0)
+
+
+def histogram256(img: torch.Tensor) -> torch.Tensor:
+    """256-bin histogram of a [0, 255] image (cv2.calcHist), float32 counts.
+    A scatter-add of ones at the truncated values: ``torch.bincount`` on a
+    CUDA tensor reads the input's maximum back to the host to size its
+    output, a synchronisation in the middle of a frame."""
+    q = img.clamp(0, 255).to(torch.int64).reshape(-1)
+    counts = torch.zeros(256, dtype=torch.int32, device=img.device)
+    counts.scatter_add_(0, q, torch.ones_like(q, dtype=torch.int32))
+    return counts.to(torch.float32)
+
+
+def minmax_normalize(img: torch.Tensor, lo: float = 0.0, hi: float = 255.0) -> torch.Tensor:
+    """cv2.normalize(NORM_MINMAX): (img − min) / (max − min) · (hi − lo) + lo."""
+    mn, mx = img.min(), img.max()
+    return (img - mn) / torch.where(mx - mn < 1e-12, 1.0, mx - mn) * (hi - lo) + lo
 
 
 def median_blur(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Rectification + disparity + metric depth, in PyTorch.
+"""The streaming pipelines, in PyTorch: rectification + disparity + metric
+depth (``DepthPipeline``), and the three-method fusion engine
+(``FusedPipeline``).
 
-Counterpart of ``stereovision_tpu/pipeline.py``'s ``DepthPipeline``:
-construct once from a calibration, then call per frame pair.
+Counterpart of ``stereovision_tpu/pipeline.py``: construct once from a
+calibration, then call per frame pair.
 
-    from stereovision_tpu_torch.pipeline import DepthPipeline
+    from stereovision_tpu_torch.pipeline import DepthPipeline, FusedPipeline
     pipe = DepthPipeline.from_store("output", mode="prod")
     result = pipe(left_gray, right_gray)     # DepthResult of CUDA tensors
+    fused = FusedPipeline.from_store("output", scale=0.33)
+    out = fused(left_gray, right_gray, t_now=timestamp)
 
 Rectification uses the exact per-element ``remap`` (the reference's own
 choice off the TPU; the separable form, ``core.image.remap_separable``, is
@@ -17,6 +21,11 @@ rescaled and rectified anew (:func:`_rescale_calibration`);
 ``exact_speckle`` replaces the engine's windowed speckle approximation by
 the exact connected-component filter on the same device
 (:func:`stereo.sgm.exact_speckle_postpass`).
+
+``FusedPipeline`` runs stereo (the hierarchical engine), MidasSmall and
+flow depth on the rectified pair, calibrates them against each other and
+fuses them under the occlusion guard; ``stream`` runs a chunk of frames
+with the guard's hysteresis on the device.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from stereovision_tpu_torch.core import image as im
 from stereovision_tpu_torch.stereo import SGMParams, disparity_with_confidence
 from stereovision_tpu_torch.stereo.autotune import tune_stats_impl
 from stereovision_tpu_torch.stereo.sgm import check_params, exact_speckle_postpass
-from stereovision_tpu_torch.utils.backend import resolve_device
+from stereovision_tpu_torch.utils.backend import resolve_device, upload
 
 
 @dataclasses.dataclass
@@ -159,3 +168,224 @@ def _rescale_calibration(cal: dict, scale: float):
     out.update(mtx_left=K1, mtx_right=K2, R1=R1.numpy(), R2=R2.numpy(), P1=P1.numpy(),
                P2=P2.numpy(), Q=Q.numpy(), img_size=np.asarray(proc))
     return proc, out
+
+
+class FusedPipeline:
+    """The three-method fusion engine (stereo + neural + motion depth, with
+    the occlusion fallback) as a stateful streaming object on ``device``;
+    the embeddable form of ``apps.fused``.
+
+    Each frame: resize to the processing size, rectify (the exact remap),
+    the occlusion scores, stereo (``SGMParams(mode="hier",
+    coarse_scale=2, refine_range=32, paths=2)`` at D = max(16,
+    ⌊320·scale⌋ rounded down to a multiple of 16)), MidasSmall on the
+    rectified left image, flow depth, the range calibrations, the fusion
+    and meters. The per-frame form reads a frame's occlusion scores on the
+    next frame (copied to pinned host memory behind an event, so the
+    steady-state loop does not wait for the card); the 5-frame hysteresis
+    tolerates the lag. Outputs are tensors on ``device``: reading ``mode``
+    or ``camera_moving`` waits for the frame, so consumers read them only
+    where they display or store them."""
+
+    def __init__(self, cal: dict, scale: float = 0.33, use_stereo=True, use_midas=True,
+                 use_flow=True, fusion_params=None, midas_arch: str = "small",
+                 midas_checkpoint=None, device="cuda"):
+        from stereovision_tpu_torch.fusion import FusionParams, OcclusionHysteresis
+        from stereovision_tpu_torch.mono import FlowDepthParams, flow_depth_init
+        from stereovision_tpu_torch.mono.nn import create_model
+
+        if midas_checkpoint is not None:
+            raise NotImplementedError(
+                "loading a hub checkpoint (midas_checkpoint) comes with the exact MiDaS "
+                "architectures (ROADMAP.md queue 1 item 10)")
+        self.device = resolve_device(device)
+        self.proc, self.cal = _rescale_calibration(cal, scale)
+        num_disp = max(16, int(320 * scale) // 16 * 16)
+        self.sgm = SGMParams(num_disparities=num_disp, mode="hier", coarse_scale=2,
+                             refine_range=32, paths=2)
+        self.depth_pipe = DepthPipeline(self.cal, self.sgm, device=self.device)
+        self.fusion_params = fusion_params or FusionParams()
+        self.hysteresis = OcclusionHysteresis()
+        self.use_stereo = use_stereo
+        self.use_midas = use_midas
+        self.use_flow = use_flow
+        self.model = create_model(arch=midas_arch, device=self.device) if use_midas else None
+        self.flow_state = (flow_depth_init((self.proc[1], self.proc[0]), device=self.device)
+                           if use_flow else None)
+        self.flow_params = FlowDepthParams()
+        self._frame = 0
+        self._pending_scores = None  # (host copy of the two scores, its event)
+
+    @classmethod
+    def from_store(cls, calib_dir, **kw):
+        from stereovision_tpu_torch.io.store import CalibrationStore
+
+        cal = CalibrationStore(calib_dir).load("stereo_calibration_data")
+        return cls(cal, **kw)
+
+    def set_params(self, **kw):
+        """Live-tune any ``FusionParams`` field."""
+        self.fusion_params = dataclasses.replace(self.fusion_params, **kw)
+        return self.fusion_params
+
+    def _rectify(self, left, right):
+        h, w = self.proc[1], self.proc[0]
+        mx1, my1, mx2, my2 = self.depth_pipe._maps
+        lr = im.remap(im.resize(left.to(torch.float32), (h, w)), mx1, my1)
+        rr = im.remap(im.resize(right.to(torch.float32), (h, w)), mx2, my2)
+        return lr, rr
+
+    def _stereo(self, lr, rr):
+        disp, conf = disparity_with_confidence(lr, rr, self.sgm, self.device)
+        return (disp / self.sgm.num_disparities * 255.0).clamp(0, 255), conf
+
+    def _meters(self, fused):
+        from stereovision_tpu_torch.fusion import fused_to_meters
+
+        return fused_to_meters(fused, self.depth_pipe.focal, self.depth_pipe.baseline_m * 100.0,
+                               num_disparities=float(self.sgm.num_disparities),
+                               device=self.device)
+
+    def _step(self, left, right, t_now: float, stereo_on: bool, flow_src_right: bool):
+        """One frame: (out or None, the occlusion scores)."""
+        from stereovision_tpu_torch.fusion import (calibrate_midas_to_stereo, fuse_depth_maps,
+                                                   normalize_to_stereo_range, occlusion_scores)
+        from stereovision_tpu_torch.mono import flow_depth_step
+        from stereovision_tpu_torch.mono.nn import estimate_depth
+
+        dev = self.device
+        lr, rr = self._rectify(left, right)
+        scores = occlusion_scores(lr, rr, device=dev)
+        stereo_norm = stereo_conf = None
+        if stereo_on:
+            stereo_norm, stereo_conf = self._stereo(lr, rr)
+        midas_cal = midas_conf = None
+        if self.use_midas:
+            md, midas_conf = estimate_depth(self.model, torch.stack([lr] * 3, dim=-1), device=dev)
+            midas_cal = (calibrate_midas_to_stereo(md, stereo_norm, stereo_conf, device=dev)
+                         if stereo_norm is not None else md)
+        flow_norm = None
+        moving = torch.zeros((), dtype=torch.bool, device=dev)
+        if self.flow_state is not None:
+            self.flow_state, fd, has, mv = flow_depth_step(
+                self.flow_state, rr if flow_src_right else lr, t_now, self.flow_params, device=dev)
+            ref = stereo_norm if stereo_norm is not None else fd
+            flow_norm = normalize_to_stereo_range(fd, ref, device=dev)
+            moving = mv & has
+        have = (stereo_norm is not None, midas_cal is not None, flow_norm is not None)
+        if not any(have):
+            return None, scores
+        fused, conf, mode = fuse_depth_maps(
+            stereo_norm, stereo_conf, midas_cal, midas_conf, flow_norm, moving,
+            self.fusion_params, have_stereo=have[0], have_midas=have[1], have_flow=have[2],
+            device=dev)
+        return {"fused": fused, "confidence": conf, "meters": self._meters(fused),
+                "mode": mode, "camera_moving": moving}, scores
+
+    def _keep_scores(self, scores):
+        """Start the copy of a frame's two scores to the host; the next frame
+        reads them (:meth:`_read_scores`)."""
+        both = torch.stack(scores)
+        if both.is_cuda:
+            host = torch.empty(2, dtype=both.dtype, pin_memory=True)
+            host.copy_(both, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._pending_scores = (host, event)
+        else:
+            self._pending_scores = (both, None)
+
+    def _read_scores(self):
+        host, event = self._pending_scores
+        if event is not None:
+            event.synchronize()  # the copy left the card a frame ago
+        return float(host[0]), float(host[1])
+
+    def __call__(self, left, right, t_now: float):
+        from stereovision_tpu_torch.fusion import classify_occlusion
+
+        if self._frame % 2 == 0 and self._pending_scores is not None:
+            # the previous frame's scores: the occlusion check runs every
+            # second frame, one frame late
+            self.hysteresis.update(classify_occlusion(*self._read_scores()))
+        state = self.hysteresis.state
+        self._frame += 1
+        out, scores = self._step(
+            upload(left, self.device), upload(right, self.device),
+            float(np.float32(t_now)), stereo_on=self.use_stereo and self.hysteresis.stereo_enabled,
+            flow_src_right=state == "left")
+        if self._frame % 2 == 1:  # this frame's scores, read on the next
+            self._keep_scores(scores)
+        if out is None:
+            return None
+        out["occlusion"] = state
+        return out
+
+    def stream(self, lefts, rights, t0: float = 0.0, dt: float = 1.0 / 30.0):
+        """Throughput form: a chunk of frames, uploaded at once (pass uint8
+        stacks: the cast to float32 happens on the device), with the
+        occlusion hysteresis run on the device as int32 tensors
+        (``fusion.hysteresis_update`` every frame). Stereo runs every frame;
+        whether it takes part is a ``torch.where`` on the hysteresis state,
+        as is the flow's source image (the right one while the left camera
+        is occluded). Returns a dict of frame-stacked outputs; the flow
+        state and the hysteresis carry across chunks (one 3-integer
+        read-back a chunk)."""
+        from stereovision_tpu_torch.fusion import (
+            OCCLUSION_CODES, calibrate_midas_to_stereo, classify_occlusion_code,
+            fuse_depth_maps, hysteresis_update, normalize_to_stereo_range, occlusion_scores)
+        from stereovision_tpu_torch.mono import flow_depth_step
+        from stereovision_tpu_torch.mono.nn import estimate_depth
+
+        dev = self.device
+        lefts, rights = upload(lefts, dev), upload(rights, dev)
+        n = lefts.shape[0]
+        ts = (t0 + dt * np.arange(n, dtype=np.float32)).astype(np.float32)
+        hy = self.hysteresis
+        hyst = tuple(torch.full((), v, dtype=torch.int32, device=dev) for v in (
+            OCCLUSION_CODES.index(hy.state), OCCLUSION_CODES.index(hy._pending), hy._count))
+        use_midas, use_flow = self.use_midas, self.flow_state is not None
+        p = self.fusion_params
+        h, w = self.proc[1], self.proc[0]
+        frames = []
+        for k in range(n):
+            lr, rr = self._rectify(lefts[k], rights[k])
+            ls, rs = occlusion_scores(lr, rr, device=dev)
+            hyst = hysteresis_update(hyst, classify_occlusion_code(ls, rs, device=dev))
+            state = hyst[0]
+            stereo_norm, sconf = self._stereo(lr, rr)
+            md = midas_conf = fd = None
+            if use_midas:
+                md, midas_conf = estimate_depth(self.model, torch.stack([lr] * 3, dim=-1),
+                                                device=dev)
+            moving = torch.zeros((), dtype=torch.bool, device=dev)
+            if use_flow:
+                src = torch.where(state == 1, rr, lr)  # left occluded → flow on the right
+                self.flow_state, fd, has, mv = flow_depth_step(
+                    self.flow_state, src, float(ts[k]), self.flow_params, device=dev)
+                moving = mv & has
+            with_stereo = fuse_depth_maps(
+                stereo_norm, sconf,
+                calibrate_midas_to_stereo(md, stereo_norm, sconf, device=dev) if use_midas else None,
+                midas_conf,
+                normalize_to_stereo_range(fd, stereo_norm, device=dev) if use_flow else None,
+                moving, p, have_stereo=True, have_midas=use_midas, have_flow=use_flow, device=dev)
+            if use_midas or use_flow:
+                ref = md if use_midas else fd
+                without = fuse_depth_maps(
+                    None, None, md, midas_conf,
+                    normalize_to_stereo_range(fd, ref, device=dev) if use_flow else None,
+                    moving, p, have_stereo=False, have_midas=use_midas, have_flow=use_flow,
+                    device=dev)
+            else:
+                z = torch.zeros((h, w), dtype=torch.float32, device=dev)
+                without = (z, z, torch.zeros((), dtype=torch.int32, device=dev))
+            on = state == 0
+            fused, conf, mode = (torch.where(on, a, b) for a, b in zip(with_stereo, without))
+            frames.append({"fused": fused, "confidence": conf, "meters": self._meters(fused),
+                           "mode": mode, "occlusion_code": state, "camera_moving": moving})
+        outs = {key: torch.stack([f[key] for f in frames]) for key in frames[0]}
+        self._frame += n
+        st, pend, cnt = torch.stack(hyst).tolist()
+        hy.state, hy._pending, hy._count = OCCLUSION_CODES[st], OCCLUSION_CODES[pend], cnt
+        return outs

@@ -8,6 +8,7 @@ which runs the plain PyTorch version of every kernel.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """A host frame (array or CPU tensor, any dtype) → a tensor on
+    ``device`` without a host wait: copied through pinned memory,
+    asynchronously, where ``device`` is a card; a tensor already on
+    ``device`` passes through."""
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

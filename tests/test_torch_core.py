@@ -4,6 +4,14 @@ The same numpy inputs go through each reference function (jitted, on the
 CPU) and its port (on the CPU). Census words, Hamming distances, window
 sums and the median are exact; remap to 1e-4 (0-255 scale); the
 rectification maps to 1e-5 px; depth and the point cloud to rtol 1e-6.
+
+The fused path's pieces: ``histogram256`` counts exact; luma, the Gaussian,
+bilateral and box filters, block std and the min-max normalization within
+rtol 1e-5 and atol 1e-4 on a 0-255 scale (the reductions and fused
+multiply-adds round in another order); ``homography_dlt`` and
+``apply_homography`` within 1e-4 relative, on well-conditioned point sets
+(a degenerate sample's null space has more than one dimension, and the two
+``eigh`` may pick different vectors of it).
 """
 
 import jax
@@ -121,3 +129,91 @@ def test_reproject_image_to_3d_matches():
     out = geom.reproject_image_to_3d(torch.from_numpy(disp), torch.from_numpy(Q))
     assert out.shape == (12, 17, 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The fused path's pieces
+# ---------------------------------------------------------------------------
+
+FRNG = np.random.default_rng(11)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
+
+
+def test_grayscale_and_minmax_match():
+    bgr = FRNG.uniform(0, 255, (21, 33, 3)).astype(np.float32)
+    _close(im.grayscale_bgr(torch.from_numpy(bgr)), jax.jit(jim.grayscale_bgr)(jnp.asarray(bgr)))
+    img = _image(19, 27)
+    ref = jax.jit(jim.minmax_normalize, static_argnums=(1, 2))(jnp.asarray(img), 0.0, 255.0)
+    _close(im.minmax_normalize(torch.from_numpy(img), 0.0, 255.0), ref)
+    flat = np.full((5, 6), 7.0, np.float32)  # max == min: the guarded division
+    ref = jax.jit(jim.minmax_normalize, static_argnums=(1, 2))(jnp.asarray(flat), 0.0, 1.0)
+    _close(im.minmax_normalize(torch.from_numpy(flat), 0.0, 1.0), ref)
+
+
+@pytest.mark.parametrize("ksize,sigma", [(5, 0.0), (15, 0.0), (3, 1.2), (7, 0.0)])
+def test_gaussian_blur_matches(ksize, sigma):
+    img = _image(24, 37)
+    np.testing.assert_array_equal(im._gaussian_kernel1d(ksize, sigma),
+                                  jim._gaussian_kernel1d(ksize, sigma))
+    ref = jax.jit(jim.gaussian_blur, static_argnums=(1, 2))(jnp.asarray(img), ksize, sigma)
+    _close(im.gaussian_blur(torch.from_numpy(img), ksize, sigma), ref)
+
+
+@pytest.mark.parametrize("d", [9, 8, 5])
+def test_bilateral_filter_matches(d):
+    img = _image(26, 35)
+    img[5:15, 10:20] += 120.0  # an edge for the range weights
+    ref = jax.jit(jim.bilateral_filter, static_argnums=(1, 2, 3))(jnp.asarray(img), d, 75.0, 75.0)
+    _close(im.bilateral_filter(torch.from_numpy(img), d, 75.0, 75.0), ref)
+
+
+def test_box_filter_and_block_std_match():
+    img = _image(101, 150)
+    ref = jax.jit(jim.box_filter, static_argnums=1)(jnp.asarray(img), 15)
+    _close(im.box_filter(torch.from_numpy(img), 15), ref)
+    ref = jax.jit(jim.block_std, static_argnums=1)(jnp.asarray(img), 48)
+    out = im.block_std(torch.from_numpy(img), 48)
+    assert out.shape == (2, 3)
+    _close(out, ref)
+
+
+def test_histogram256_exact():
+    img = FRNG.uniform(-20, 280, (37, 53)).astype(np.float32)
+    img[0, :4] = [0.0, 254.999, 255.0, -0.5]  # the edges of the first and last bins
+    ref = jax.jit(jim.histogram256)(jnp.asarray(img))
+    out = im.histogram256(torch.from_numpy(img))
+    assert out.dtype == torch.float32 and out.shape == (256,)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert out.sum() == img.size
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_homography_dlt_and_apply_match(dtype):
+    """float64: H within 1e-4 of its largest entry. float32 (the fused
+    path's type): the two ``eigh`` of AᵀA differ there by up to ~1e-4 of
+    the largest entry, so the points each H maps are compared (rtol 1e-4)."""
+    rng = np.random.default_rng(12)
+    # well-conditioned sets: four points near the corners of a 400x300
+    # image (no three near a line), a mild homography, half-pixel noise
+    H_true = np.array([[1.02, 0.03, 5.0], [-0.01, 0.98, -3.0], [2e-5, -1e-5, 1.0]])
+    corners = np.array([[0, 0], [400, 0], [0, 300], [400, 300]], np.float64)
+    src = corners[None] + rng.uniform(-40, 40, (16, 4, 2))
+    dst = np.asarray(jgeom.apply_homography(jnp.asarray(H_true), jnp.asarray(src)))
+    dst = dst + rng.normal(0, 0.5, dst.shape)
+    pts = rng.uniform(-50, 450, (30, 2)).astype(dtype)
+    for s, d in ((src, dst), (src.reshape(-1, 2)[:20], dst.reshape(-1, 2)[:20])):
+        s, d = s.astype(dtype), d.astype(dtype)
+        ref = np.asarray(jax.jit(jgeom.homography_dlt)(jnp.asarray(s), jnp.asarray(d)))
+        out = geom.homography_dlt(torch.from_numpy(s), torch.from_numpy(d)).numpy()
+        assert out.dtype == dtype
+        if dtype == np.float64:
+            scale = np.abs(ref).max(axis=(-1, -2), keepdims=True)
+            np.testing.assert_allclose(out / scale, ref / scale, rtol=0, atol=1e-4)
+        want = np.asarray(jax.jit(jgeom.apply_homography)(jnp.asarray(ref), jnp.asarray(pts)))
+        got = geom.apply_homography(torch.from_numpy(ref.copy()), torch.from_numpy(pts)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        mapped = np.asarray(jax.jit(jgeom.apply_homography)(jnp.asarray(out), jnp.asarray(pts)))
+        np.testing.assert_allclose(mapped, want, rtol=1e-4, atol=1e-4)

@@ -215,7 +215,7 @@ def test_calibration_store_round_trip(tmp_path, rig_calibration):
 # The port imports nothing of JAX
 # ---------------------------------------------------------------------------
 
-_FORBIDDEN = {"jax", "jaxlib", "stereovision_tpu"}
+_FORBIDDEN = {"jax", "jaxlib", "stereovision_tpu", "flax", "msgpack"}
 
 
 def _imported_roots(path: Path):
@@ -245,6 +245,12 @@ def test_port_imports_no_jax():
         "stereo/speckle_ccl", "stereo/eval", "stereo/autotune", "ops/native", "io/frames",
         "io/validate", "io/pointcloud", "io/native_loader", "apps/__init__", "apps/depth",
         "apps/eval_disparity")} <= scanned
+    # the fused path: fusion, mono, models, the checkpoint reader, the app
+    assert {f"stereovision_tpu_torch/{name}.py" for name in (
+        "fusion/__init__", "fusion/occlusion", "fusion/calibrate", "fusion/fuse",
+        "fusion/legend", "mono/__init__", "mono/flow", "mono/ego", "mono/depth", "mono/nn",
+        "models/__init__", "models/midas", "models/checkpoint", "utils/logging",
+        "utils/annotate", "apps/fused")} <= scanned
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in _FORBIDDEN]
     assert not bad, bad
