@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's DepthPipeline, its tile-parallel engines and its
-measurement scripts on one CUDA card and check them.
+"""Drive the port's DepthPipeline, its tile-parallel engines, its
+measurement scripts, FusedPipeline and the mono-depth networks on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -111,7 +112,18 @@ each of which raises (exit code non-zero, no result line) on failure:
    launches replayed against the plain version, against the exact
    ``remap``, both timed; reported on the #7 row as ``separable_remap``)
    and the autotune (``"auto"`` → the kernel form; both statistics forms
-   bit-identical).
+   bit-identical);
+12. (:func:`fused_phase`) ``FusedPipeline`` on the production rig at
+   ``scale=0.33`` with MidasSmall: its launches replayed and counted, the
+   frame against its plain-kernel twin, the covered camera, the shift
+   warp, TF32, per-frame and streamed times, stage times, device time and
+   synchronising calls;
+13. (:func:`mono_models_phase`) the exact MiDaS v2.1 small and DPT-Large
+   with seeded weights: the hub-checkpoint path, each against the CPU
+   with TF32 off, timed with TF32 off and on with peak memory, each in
+   ``FusedPipeline`` (launches replayed and counted, the plain-kernel
+   twin, ms per frame, idle share), and ``apps.mono_ai``'s work on a
+   1280x720 frame for each of its archs.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
@@ -1717,6 +1729,256 @@ def fused_phase(torch, card: str, cal, planes):
             "stream_ms": stream_ms}
 
 
+# the mono-depth networks (phase 13): each exact architecture at the sizes
+# the path gives it (MidasV21Small at 256x256; DPT-Large at its native
+# 384x384 and at 256x256, mono_ai's and FusedPipeline's net_hw)
+MONO_SIZES = {"midas_v21_small": ((256, 256),), "dpt_large": ((384, 384), (256, 256))}
+MONO_TOL = 1e-4                    # of the output's range, against the CPU, TF32 off
+TF32_PEAK_OPS_PER_S = 495e12       # H100 SXM dense TF32 (NVIDIA data sheet)
+
+
+def head_conv_probe(torch, card: str, conv, hw):
+    """DPT-Large's head convolution (3x3, 256 → 128, at half the input's
+    size) alone on a seeded input, TF32 off: through cuDNN, with cuDNN
+    disabled (PyTorch's own im2col and GEMM), and through cuDNN with TF32 on;
+    ms (events, 5 calls) and peak memory above its input, each within
+    ``MONO_TOL`` of a float64 product on the card."""
+    dev = conv.weight.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(1, conv.in_channels, hw[0] // 2, hw[1] // 2, device=dev, generator=gen)
+    with torch.no_grad():
+        ref = torch.nn.functional.conv2d(x.double(), conv.weight.double(), conv.bias.double(),
+                                         padding=1)
+        span = (ref.max() - ref.min()).item()
+        rows = []
+        for label, cudnn_on, tf32 in (("cuDNN", True, False), ("no cuDNN", False, False),
+                                      ("cuDNN, TF32", True, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.backends.cudnn.flags(enabled=cudnn_on, allow_tf32=tf32):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                err = (conv(x).double() - ref).abs().max().item() / span
+                peak = torch.cuda.max_memory_allocated() - held
+                ms = cuda_ms(torch, lambda: conv(x), 5)
+            if not tf32:
+                check(err <= MONO_TOL, f"the head conv ({label}) differs from float64 by {err}")
+            rows.append(f"{label} {ms:.3f} ms, {peak / 1e9:.3f} GB, {err:.1e} of the range")
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"mono dpt_large head conv alone at {hw[0] // 2}x{hw[1] // 2} ({conv.in_channels} -> "
+          f"{conv.out_channels}, 3x3): " + "; ".join(rows) + f"; card {card}")
+
+
+def mono_models_phase(torch, card: str, cal, planes):
+    """Phase 13, the exact MiDaS architectures with seeded weights
+    (``mono.nn.create_model(arch, seed=SEED)``, built on the CPU):
+
+    a. each network's hub checkpoint: ``torch.save`` of its seeded
+       ``state_dict``, then ``create_model(arch, torch_state_dict=path)`` on
+       the card, whose output must equal the seeded module moved to the card
+       (exact);
+    b. each network on the card at each size of ``MONO_SIZES`` against the
+       same module's forward on the CPU, with TF32 off: within ``MONO_TOL``
+       of the CPU output's range (its range must not be 0); with TF32 on,
+       the difference printed; each forward's operations counted on the CPU
+       (``torch.utils.flop_counter``) and its bound at the float32 and TF32
+       peaks; DPT-Large's head convolution alone (:func:`head_conv_probe`);
+    c. each forward timed with TF32 off and on: events around 20 calls
+       (host included) and the device time of one call (``torch.profiler``),
+       and its peak memory above what the script holds (the weights among
+       it);
+    d. ``FusedPipeline(calibration(), scale=0.33, midas_arch=arch,
+       midas_checkpoint=path)`` on phase 12's rig: the frame against its
+       twin with every kernel plain (fused within 0.1, mode, camera_moving
+       and occlusion equal), one frame's launches replayed against their
+       plain versions (exact), the next counted (the kernels of the hier
+       engine must launch, as often as recorded), ms per frame (3 warm-up,
+       20 timed) and the device's idle share;
+    e. ``apps.mono_ai``'s work on a 1280x720 frame for each of its three
+       archs (``frame_view``, then the copy to the host the PNG needs),
+       timed. Where ``matplotlib`` is missing its TURBO table is a seeded
+       stand-in: the same 256-entry gather.
+
+    Returns the launches of one fused frame by arch and kernel name."""
+    import copy
+    import importlib.util
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from stereovision_tpu_torch.apps import mono_ai
+    from stereovision_tpu_torch.core import image as im
+    from stereovision_tpu_torch.mono import nn as mnn
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.pipeline import FusedPipeline
+
+    def tf32(on: bool):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+
+    frames = fused_frames(planes, 2 * WARMUP + FRAMES + 8)
+    launches = {}
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_mono_")
+    models = {"small": mnn.create_model(device="cuda")}
+    try:
+        for arch, sizes in MONO_SIZES.items():
+            # -- 13a. the hub checkpoint -----------------------------------------
+            t0 = time.perf_counter()
+            cpu = mnn.create_model(arch, seed=SEED, device="cpu")
+            built_s = time.perf_counter() - t0
+            path = f"{workdir.name}/{arch}.pt"
+            torch.save(cpu.state_dict(), path)
+            t0 = time.perf_counter()
+            model = mnn.create_model(arch, torch_state_dict=path, device="cuda")
+            loaded_s = time.perf_counter() - t0
+            seeded = copy.deepcopy(cpu).cuda()
+            x = torch.from_numpy(np.random.default_rng(SEED).uniform(0, 1, (1, *sizes[0], 3))
+                                 .astype(np.float32))
+            with torch.no_grad():
+                same = torch.equal(model(x.cuda()), seeded(x.cuda()))
+            check(same, f"{arch}: the checkpoint-loaded network differs from the seeded one")
+            n_params = sum(p.numel() for p in cpu.parameters())
+            print(f"mono {arch}: {n_params:,} parameters, seeded on the CPU in {built_s:.2f} s; "
+                  f"its state_dict through torch.save and create_model(torch_state_dict=path) "
+                  f"onto the card in {loaded_s:.2f} s, output equal to the seeded module's")
+            del seeded
+            torch.cuda.empty_cache()
+            models[arch] = model
+
+            for hw in sizes:
+                # -- 13b. against the CPU -------------------------------------
+                x = torch.from_numpy(np.random.default_rng(SEED + hw[0])
+                                     .uniform(0, 1, (1, *hw, 3)).astype(np.float32))
+                with torch.no_grad(), FlopCounterMode(display=False) as flops:
+                    ref = cpu(x)
+                n_ops = flops.get_total_flops()
+                span = (ref.max() - ref.min()).item()
+                check(span > 0 and bool(torch.isfinite(ref).all()),
+                      f"{arch} {hw}: the CPU output's range is {span}")
+                xc = x.cuda()
+                errs, times = {}, {}
+                for on in (False, True):
+                    tf32(on)
+                    with torch.no_grad():
+                        got = model(xc)
+                        errs[on] = (got.cpu() - ref).abs().max().item() / span
+                        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                              f"{arch} {hw}: output {tuple(got.shape)} or not finite")
+                        # -- 13c. times and memory ----------------------------
+                        fn = lambda: model(xc)  # noqa: E731
+                        ms = cuda_ms(torch, fn, FRAMES, warmup=3)
+                        dev, top = profiled_device_ms(torch, fn)
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        held = torch.cuda.memory_allocated()
+                        fn()
+                        torch.cuda.synchronize()
+                        peak = torch.cuda.max_memory_allocated() - held
+                    times[on] = (ms, dev, peak, held, top)
+                tf32(False)
+                check(errs[False] <= MONO_TOL,
+                      f"{arch} {hw} on the card differs from the CPU by {errs[False]:.3e} of its "
+                      f"range with TF32 off")
+                b32, btf = n_ops / OPS_PER_S * 1e3, n_ops / TF32_PEAK_OPS_PER_S * 1e3
+                print(f"mono {arch} at {hw[0]}x{hw[1]}: against the CPU {errs[False]:.3e} of the "
+                      f"output's range ({span:.4g}) with TF32 off, {errs[True]:.3e} on; "
+                      f"{n_ops / 1e9:.2f} G operations (bound {b32:.4f} ms at the float32 peak, "
+                      f"{btf:.4f} at TF32's)")
+                for on in (False, True):
+                    ms, dev, peak, held, top = times[on]
+                    print(f"mono {arch} at {hw[0]}x{hw[1]}, TF32 {'on' if on else 'off'}: "
+                          f"{ms:.3f} ms a forward (events, {FRAMES} calls), device "
+                          f"{fmt(dev)}, peak memory {peak / 1e9:.3f} GB above the {held / 1e9:.2f} "
+                          f"GB held, largest: {top}; card {card}")
+            if arch == "dpt_large":
+                head_conv_probe(torch, card, model.scratch.output_conv[0], sizes[0])
+            del cpu, ref
+            torch.cuda.empty_cache()
+
+            # -- 13d. the fused frame with this network ------------------------
+            def make():
+                p = FusedPipeline(cal, scale=FUSED_SCALE, midas_arch=arch, midas_checkpoint=path)
+                check(p.proc == FUSED_PROC and p.sgm.num_disparities == FUSED_D,
+                      f"fused {arch}: processed at {p.proc}, D={p.sgm.num_disparities}")
+                return p
+
+            def run(pipe, ks):
+                out = None
+                for k in ks:
+                    out = pipe(frames[k][0], frames[k][1], t_now=k / 30.0)
+                return out
+
+            pipe, twin = make(), make()
+            got = run(pipe, range(4))
+            with plain_kernels(sgm_cuda):
+                sgm_cuda.reset_launch_counts()
+                want = run(twin, range(4))
+                torch.cuda.synchronize()
+                check(not any(sgm_cuda.launch_counts().values()),
+                      f"fused {arch}: the plain twin launched a kernel")
+            f_err = (got["fused"] - want["fused"]).abs().max().item()
+            check(f_err <= 0.1, f"fused {arch}: fused differs from the plain twin by {f_err}")
+            for key in ("mode", "camera_moving"):
+                check(torch.equal(got[key], want[key]),
+                      f"fused {arch}: {key} differs from the plain twin")
+            check(got["occlusion"] == want["occlusion"] == "none",
+                  f"fused {arch}: occlusion '{got['occlusion']}' / '{want['occlusion']}'")
+            del twin, want
+            torch.cuda.empty_cache()
+            with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]) as rec:
+                run(pipe, [4])
+                torch.cuda.synchronize()
+            calls = {k: v for k, v in rec.calls.items() if v}
+            err = parity(torch, sgm_cuda, calls, f"the fused frame with {arch}")
+            del rec
+            sgm_cuda.reset_launch_counts()
+            out = run(pipe, [5])
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in sgm_cuda.launch_counts().items() if n}
+            recorded = {FULL_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
+            del calls
+            print(f"launches in one fused frame with {arch}: {counts}")
+            for k in FUSED_KERNELS:
+                check(counts.get(k, 0) > 0, f"fused {arch}: kernel {k} was not launched")
+            check(counts == recorded, f"fused {arch}: counted {counts}, recorded {recorded}")
+            check(int(out["mode"]) == 1 and bool(torch.isfinite(out["fused"]).all()),
+                  f"fused {arch}: mode {int(out['mode'])} on the panning rig")
+            launches[arch] = counts
+            base = 6
+            run(pipe, range(base, base + WARMUP))
+            ms = cuda_ms(torch, lambda: run(pipe, range(base + WARMUP, base + WARMUP + FRAMES)),
+                         1, warmup=0) / FRAMES
+            dev, top = profiled_device_ms(torch, lambda: run(pipe, [base + WARMUP + FRAMES]))
+            idle = "not measured" if dev is None else f"{1 - dev / ms:.3f}"
+            print(f"frame fused with {arch}: {ms:.3f} ms/frame, {1e3 / ms:.2f} frames/s "
+                  f"({FRAMES} timed frames after {WARMUP} warm-up; the twin with every kernel "
+                  f"plain: fused max abs err {f_err}; launches exact, max abs err {err}); "
+                  f"device {fmt(dev)} a frame, idle share {idle}; largest: {top}; card {card}")
+            del pipe, out
+            torch.cuda.empty_cache()
+
+        # -- 13e. mono_ai's work on a 720p frame --------------------------------
+        if importlib.util.find_spec("matplotlib") is None:
+            stand_in = np.random.default_rng(SEED).uniform(0, 255, (256, 3)).astype(np.float32)
+            im._turbo_lut = lambda: stand_in
+            print("mono_ai: matplotlib is not installed here; the TURBO table is a seeded "
+                  "stand-in (the same gather)")
+        frame = np.ascontiguousarray(np.stack([planes[0]] * 3, axis=-1))
+        for arch, model in models.items():
+            def view():
+                return mono_ai.frame_view(model, frame, "cuda").to(torch.uint8).cpu()
+
+            vis = view()
+            check(vis.shape == (H, W, 3) and vis.dtype == torch.uint8,
+                  f"mono_ai {arch}: a view of {tuple(vis.shape)} {vis.dtype}")
+            ms = cuda_ms(torch, view, 10, warmup=2)
+            print(f"mono_ai {arch}: {ms:.3f} ms a {W}x{H} frame (estimate_depth at 256x256, the "
+                  f"inverted TURBO view, the copy to the host); card {card}")
+    finally:
+        tf32(False)
+        workdir.cleanup()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2007,8 +2269,11 @@ def main() -> int:
         torch, card, cal, planes, launches["production"], frame_ms["production"])
     torch.cuda.empty_cache()
     fused = fused_phase(torch, card, cal, planes)
-    for r in rows:  # launches in one fused frame (its #7 in the gather warp)
+    torch.cuda.empty_cache()
+    mono = mono_models_phase(torch, card, cal, planes)
+    for r in rows:  # launches in one fused frame (its #7 in the gather warp), by network
         r["fused_launches"] = fused["launches"].get(r["name"], 0)
+        r["mono_fused_launches"] = {arch: n.get(r["name"], 0) for arch, n in mono.items()}
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input

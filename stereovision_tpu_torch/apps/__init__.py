@@ -4,6 +4,8 @@
     python -m stereovision_tpu_torch.apps.depth …
     python -m stereovision_tpu_torch.apps.eval_disparity …
     python -m stereovision_tpu_torch.apps.fused …
+    python -m stereovision_tpu_torch.apps.mono_ai …
+    python -m stereovision_tpu_torch.apps.mono_motion …
 
 Each takes the reference's flags plus ``--device`` (default ``cuda``).
 Image files are read and written with ``imageio`` (and ``cv2`` for PNG

@@ -122,3 +122,61 @@ def midas_small_from_flax(variables: dict) -> dict:
     if missing:
         raise ValueError(f"parameters of the port's MidasSmall that no flax leaf fills: {missing}")
     return out
+
+
+# flax leaf name → the hub's (a conv's or Dense's kernel, a norm's scale,
+# batch statistics)
+_HUB_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _hub_from_flax(variables: dict, want: dict, what: str) -> dict:
+    """flax variables whose module names are hub state_dict prefixes with
+    "." written "__" (the JAX package's exact MiDaS architectures) → a
+    hub-format ``state_dict`` of float32 tensors, by name: conv kernels
+    HWIO → OIHW, Dense kernels (in, out) → weight (out, in), ``scale`` →
+    ``weight``, batch statistics mean/var → ``running_mean``/``running_var``;
+    a transposed convolution's ``weight`` (the torch layout already) and a
+    module's own parameters (``cls_token``, ``pos_embed``) verbatim. Every
+    leaf is checked against ``want`` (key → shape); a leaf with no
+    counterpart, a shape that differs or a key no leaf fills raises."""
+    out, unknown = {}, []
+    for path, leaf in _leaves(variables):
+        arr = np.asarray(leaf)
+        names = path[1:]  # below the collection ('params' or 'batch_stats')
+        if len(names) == 1:  # a module's own parameter
+            key = names[0].replace("__", ".")
+        else:
+            if names[-1] == "kernel":
+                arr = np.transpose(arr, (3, 2, 0, 1)) if arr.ndim == 4 else arr.T
+            key = f"{names[0].replace('__', '.')}.{_HUB_LEAF.get(names[-1], names[-1])}"
+        if len(names) > 2 or key not in want:
+            unknown.append("/".join(path))
+            continue
+        if tuple(want[key]) != arr.shape:
+            raise ValueError(f"shape mismatch mapping {'/'.join(path)} {arr.shape} onto {key} "
+                             f"{tuple(want[key])}")
+        out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    if unknown:
+        raise ValueError(f"flax leaves with no counterpart in the port's {what}: {unknown[:8]}")
+    missing = [k for k in want if k not in out]
+    if missing:
+        raise ValueError(f"parameters of the port's {what} that no flax leaf fills: {missing[:8]}")
+    return {k: out[k] for k in want}
+
+
+def midas_v21_from_flax(variables: dict) -> dict:
+    """The JAX package's ``MidasV21Small`` variables ({'params',
+    'batch_stats'}: nested dicts of numpy arrays) → a hub-format
+    ``state_dict`` for the port's ``models.midas_v21.MidasV21Small``."""
+    from stereovision_tpu_torch.models.midas_v21 import expected_manifest
+
+    return _hub_from_flax(variables, dict(expected_manifest()), "MidasV21Small")
+
+
+def dpt_from_flax(variables: dict, cfg=None) -> dict:
+    """The JAX package's ``DPTDepth(cfg)`` variables ({'params'}: nested
+    dicts of numpy arrays) → a hub-format ``state_dict`` for the port's
+    ``models.dpt.DPTDepth(cfg)`` (``DPT_LARGE`` by default)."""
+    from stereovision_tpu_torch.models.dpt import DPT_LARGE, expected_manifest
+
+    return _hub_from_flax(variables, dict(expected_manifest(cfg or DPT_LARGE)), "DPTDepth")

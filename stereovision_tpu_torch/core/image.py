@@ -7,8 +7,9 @@ apps: the exact remap and its separable form (two passes of the
 ``shift_gather`` kernel, #7), resize, median, census, Hamming costs and
 the colormaps; and the pieces of the fused path: luma, Gaussian, bilateral
 and box filters, the occlusion detector's block statistics and histogram,
-and the min-max normalization. The rest of the reference module comes with
-ROADMAP.md queue 1 item 8.
+and the min-max normalization; and the mono apps' percentile
+normalization. The rest of the reference module comes with ROADMAP.md
+queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -367,6 +368,23 @@ def minmax_normalize(img: torch.Tensor, lo: float = 0.0, hi: float = 255.0) -> t
     """cv2.normalize(NORM_MINMAX): (img − min) / (max − min) · (hi − lo) + lo."""
     mn, mx = img.min(), img.max()
     return (img - mn) / torch.where(mx - mn < 1e-12, 1.0, mx - mn) * (hi - lo) + lo
+
+
+@functools.lru_cache(maxsize=None)
+def quantile_q(qs: tuple, device: torch.device) -> torch.Tensor:
+    """The quantiles ``qs`` (percent) as a float32 vector on ``device``, made
+    once a device: ``torch.quantile`` reads a q on the CPU back for its
+    range check, and one copied up each call waits for the copy."""
+    return torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=device)
+
+
+def percentile_normalize(img: torch.Tensor, p_lo: float, p_hi: float) -> torch.Tensor:
+    """Percentile-windowed normalize to [0, 1]: (img − P[p_lo]) /
+    (P[p_hi] − P[p_lo]), clipped, with numpy's linear percentiles (the MONO
+    demo's 3/97)."""
+    lo, hi = torch.quantile(img.reshape(-1).to(torch.float32),
+                            quantile_q((float(p_lo), float(p_hi)), img.device))
+    return ((img - lo) / torch.where(hi - lo < 1e-12, 1.0, hi - lo)).clamp(0.0, 1.0)
 
 
 def median_blur(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:

@@ -9,16 +9,10 @@ copied from the host each call waits for the copy.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from stereovision_tpu_torch.core.image import quantile_q as _q
 from stereovision_tpu_torch.utils.backend import resolve_device
-
-
-@functools.lru_cache(maxsize=None)
-def _q(qs: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor([q / 100.0 for q in qs], dtype=torch.float32, device=device)
 
 
 def _percentiles(vals, qs):

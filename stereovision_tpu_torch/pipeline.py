@@ -178,8 +178,11 @@ class FusedPipeline:
     Each frame: resize to the processing size, rectify (the exact remap),
     the occlusion scores, stereo (``SGMParams(mode="hier",
     coarse_scale=2, refine_range=32, paths=2)`` at D = max(16,
-    ⌊320·scale⌋ rounded down to a multiple of 16)), MidasSmall on the
-    rectified left image, flow depth, the range calibrations, the fusion
+    ⌊320·scale⌋ rounded down to a multiple of 16)), the mono-depth network
+    on the rectified left image (``mono.nn.create_model(midas_arch,
+    torch_state_dict=midas_checkpoint)``: MidasSmall with the bundled
+    weights by default, or the exact MiDaS v2.1 small or DPT-Large with a
+    hub checkpoint), flow depth, the range calibrations, the fusion
     and meters. The per-frame form reads a frame's occlusion scores on the
     next frame (copied to pinned host memory behind an event, so the
     steady-state loop does not wait for the card); the 5-frame hysteresis
@@ -194,10 +197,6 @@ class FusedPipeline:
         from stereovision_tpu_torch.mono import FlowDepthParams, flow_depth_init
         from stereovision_tpu_torch.mono.nn import create_model
 
-        if midas_checkpoint is not None:
-            raise NotImplementedError(
-                "loading a hub checkpoint (midas_checkpoint) comes with the exact MiDaS "
-                "architectures (ROADMAP.md queue 1 item 10)")
         self.device = resolve_device(device)
         self.proc, self.cal = _rescale_calibration(cal, scale)
         num_disp = max(16, int(320 * scale) // 16 * 16)
@@ -209,7 +208,8 @@ class FusedPipeline:
         self.use_stereo = use_stereo
         self.use_midas = use_midas
         self.use_flow = use_flow
-        self.model = create_model(arch=midas_arch, device=self.device) if use_midas else None
+        self.model = (create_model(arch=midas_arch, torch_state_dict=midas_checkpoint,
+                                   device=self.device) if use_midas else None)
         self.flow_state = (flow_depth_init((self.proc[1], self.proc[0]), device=self.device)
                            if use_flow else None)
         self.flow_params = FlowDepthParams()

@@ -72,8 +72,10 @@ def test_fused_pipeline_entry_points(tmp_path):
     nothing = FusedPipeline(cal, scale=0.5, use_stereo=False, use_midas=False, use_flow=False,
                             device="cpu")
     assert nothing(left, right, t_now=0.0) is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        FusedPipeline(cal, midas_checkpoint="hub.pt", device="cpu")
+    with pytest.raises(ValueError, match="torch_state_dict loads the hub architectures"):
+        FusedPipeline(cal, midas_checkpoint="hub.pt", device="cpu")  # the default arch "small"
+    with pytest.raises(FileNotFoundError, match="hub.pt"):
+        FusedPipeline(cal, midas_arch="midas_v21_small", midas_checkpoint="hub.pt", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             FusedPipeline(cal, use_midas=False)

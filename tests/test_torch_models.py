@@ -183,10 +183,12 @@ def test_estimate_depth_matches(reference):
 
 
 def test_create_model_options():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tnn.create_model(arch="midas_v21_small", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tnn.create_model(arch="dpt_large", device="cpu")
+    # the exact architectures (tests/test_torch_midas_v21.py, test_torch_dpt.py)
+    assert type(tnn.create_model(arch="midas_v21_small", device="cpu")).__name__ == "MidasV21Small"
+    with pytest.raises(ValueError, match="DPT_Large: missing keys"):
+        tnn.create_model(arch="dpt_large", torch_state_dict={}, device="cpu")
+    with pytest.raises(ValueError, match="not 'small'"):
+        tnn.create_model(torch_state_dict={}, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         tnn.create_model(arch="tiny", device="cpu")
     a, b = (tnn.create_model(pretrained=False, seed=3, device="cpu") for _ in range(2))
