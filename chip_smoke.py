@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's DepthPipeline, its tile-parallel engines, its
-measurement scripts, FusedPipeline and the mono-depth networks on one CUDA
-card and check them.
+measurement scripts, FusedPipeline, the mono-depth networks, calibration
+and SfM on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -123,7 +123,16 @@ each of which raises (exit code non-zero, no result line) on failure:
    with TF32 off, timed with TF32 off and on with peak memory, each in
    ``FusedPipeline`` (launches replayed and counted, the plain-kernel
    twin, ms per frame, idle share), and ``apps.mono_ai``'s work on a
-   1280x720 frame for each of its archs.
+   1280x720 frame for each of its archs;
+14. (:func:`calib_sfm_phase`) calibration and SfM on inputs rendered here:
+   twelve 1280x720 stereo pairs of a 9x6 board through the distorted rig,
+   detected, calibrated (mono, stereo with fixed intrinsics, universal),
+   rectified and checked against the truth and the CPU; the universal
+   calibration's ``DepthPipeline(production_preset())`` on a plane at 1.5
+   m (launches replayed and counted); a 64-frame sequence through
+   ``build_tracks``, the RANSAC pose chain and the landmark BA on 1 and 4
+   mesh positions, against each other and the CPU; the mono BA against
+   ``calibrate_camera``.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
@@ -1413,6 +1422,41 @@ class plain_kernels:
             setattr(self.mod, name, fn)
 
 
+def sync_count(torch, fn):
+    """Synchronising calls in ``fn`` (``torch.cuda.set_sync_debug_mode("warn")``),
+    by the innermost line of the port (or of this script) that made them:
+    (count, {line: count})."""
+    import collections
+    import traceback
+    import warnings
+
+    where = collections.Counter()
+    inside = [False]  # set_sync_debug_mode's own first-use warning is no sync of fn's
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if inside[0] and "synchroniz" in str(message):
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if "stereovision_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+            f = ours[-1] if ours else None
+            where[f"{'/'.join(f.filename.split('/')[-2:])}:{f.lineno} via "
+                  f"{filename.rsplit('/', 1)[-1]}:{lineno}" if f else
+                  f"{filename}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
+        try:
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum(where.values()), dict(where)
+
+
 def fused_phase(torch, card: str, cal, planes):
     """Phase 12, the fused three-method path (``FusedPipeline``) on the
     production rig at ``scale=0.33`` (422x236, D=96; MidasSmall with the
@@ -1443,10 +1487,6 @@ def fused_phase(torch, card: str, cal, planes):
        (``torch.cuda.set_sync_debug_mode("warn")``).
 
     Returns the launches of one fused frame by kernel name."""
-    import collections
-    import traceback
-    import warnings
-
     from stereovision_tpu_torch import fusion, mono
     from stereovision_tpu_torch.mono import depth as mdepth
     from stereovision_tpu_torch.mono import nn as mnn
@@ -1652,36 +1692,11 @@ def fused_phase(torch, card: str, cal, planes):
           f"card {card}")
 
     # the synchronising calls of one steady-state frame and of one chunk
-    def syncs(fn):
-        """Synchronising calls in ``fn``, by the innermost line of the port
-        (or of this script) that made them."""
-        where = collections.Counter()
-
-        def hook(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" in str(message):
-                ours = [f for f in traceback.extract_stack()[:-1]
-                        if "stereovision_tpu_torch" in f.filename or "chip_smoke" in f.filename]
-                f = ours[-1] if ours else None
-                where[f"{'/'.join(f.filename.split('/')[-2:])}:{f.lineno} via "
-                      f"{filename.rsplit('/', 1)[-1]}:{lineno}" if f else
-                      f"{filename}:{lineno}"] += 1
-
-        torch.cuda.synchronize()
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = hook
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        return sum(where.values()), dict(where)
 
     k = base + WARMUP + FRAMES
-    n_frame, where_frame = syncs(lambda: run(timed, [k]))
+    n_frame, where_frame = sync_count(torch, lambda: run(timed, [k]))
     lefts, rights, t = chunks[0]
-    n_chunk, where_chunk = syncs(lambda: st.stream(lefts, rights, t0=t))
+    n_chunk, where_chunk = sync_count(torch, lambda: st.stream(lefts, rights, t0=t))
     print(f"fused synchronising calls (set_sync_debug_mode('warn')): {n_frame} in one "
           f"steady-state frame {where_frame}, besides the wait for the previous frame's "
           f"occlusion scores (an event); {n_chunk} in one stream chunk of {FUSED_CHUNK} "
@@ -1979,6 +1994,425 @@ def mono_models_phase(torch, card: str, cal, planes):
     return launches
 
 
+# -- phase 14: calibration and SfM -----------------------------------------
+
+BOARD, SQUARE_CM = (9, 6), 2.5
+CAL_PAIRS = 12
+CAL_F = 1000.0                     # both cameras' focal length (px); UNIVERSAL ties them
+CAL_K = ((CAL_F, 645.5, 357.5), (CAL_F, 634.0, 362.5))    # (f, cx, cy) left, right
+CAL_DIST = ((-0.08, 0.02, 0.0, 0.0, 0.0), (-0.06, 0.015, 0.0, 0.0, 0.0))   # barrel
+CAL_ROT = (0.004, -0.01, 0.002)    # rad, the right camera's rotation
+CAL_T = (-6.0, 0.05, 0.1)          # cm, baseline ~6 cm
+CAL_NOISE = 1.0                    # grey levels
+PLANE_CM = 150.0                   # the calibrated pipeline's textured plane
+SFM_FRAMES, SFM_CORNERS = 64, 512
+SFM_Z = (400.0, 150.0)             # cm: the far plane, the near one
+SFM_STEP_CM = 4.0                  # the camera's x translation a frame
+NEAR_BAND = (260, 260)             # the near plane's first row and height
+BA_ITERS, BA_CHUNK = 10, 5
+# card against the CPU: corners (px), calibration results (relative),
+# camera poses and landmarks (relative)
+CORNER_TOL, CALIB_TOL, SFM_TOL = 1e-3, 1e-6, 1e-6
+
+
+def _k(i):
+    f, cx, cy = CAL_K[i]
+    return np.array([[f, 0, cx], [0, f, cy], [0, 0, 1.0]])
+
+
+def _rodrigues_np(r):
+    r = np.asarray(r, np.float64)
+    th = np.linalg.norm(r)
+    if th < 1e-12:
+        return np.eye(3)
+    k = r / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def _distort_np(xy, d):
+    k1, k2, p1, p2, k3 = d
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    rad = 1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+    return np.stack([x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x),
+                     y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y], -1)
+
+
+def _rays(i):
+    """Every pixel's undistorted normalized ray (x, y) of camera i, (H, W, 2):
+    the distortion inverted by fixed-point steps."""
+    K = _k(i)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    xd = np.stack([(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1]], -1)
+    xy = xd.copy()
+    for _ in range(20):
+        xy = xy - (_distort_np(xy, CAL_DIST[i]) - xd)
+    return xy
+
+
+def _project_np(X, R, t, i):
+    cam = X @ R.T + t
+    xy = _distort_np(cam[:, :2] / cam[:, 2:], CAL_DIST[i])
+    K = _k(i)
+    return xy * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+
+
+def _bilinear_np(tex, u, v):
+    """tex sampled at float texel coordinates (u along x, v along y)."""
+    u = np.clip(u, 0, tex.shape[1] - 1.001)
+    v = np.clip(v, 0, tex.shape[0] - 1.001)
+    x0, y0 = u.astype(np.int64), v.astype(np.int64)
+    fx, fy = u - x0, v - y0
+    return ((tex[y0, x0] * (1 - fx) + tex[y0, x0 + 1] * fx) * (1 - fy)
+            + (tex[y0 + 1, x0] * (1 - fx) + tex[y0 + 1, x0 + 1] * fx) * fy)
+
+
+def board_views(rng):
+    """CAL_PAIRS stereo pairs of a 9x6 board (10x7 squares of 2.5 cm on a
+    grey ground) seen by the distorted rig at 40-70 cm, rendered per pixel
+    (each pixel's ray meets the board plane; the squares' edges are
+    ramps a pixel wide, so each inner corner is a saddle), with noise of
+    CAL_NOISE grey levels, as uint8. Returns (lefts, rights, the inner
+    corners' true projections (V, 54, 2) left and right)."""
+    rays = [_rays(0), _rays(1)]
+    R_st, T_st = _rodrigues_np(CAL_ROT), np.asarray(CAL_T)
+    w, h = BOARD
+    obj = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1).reshape(-1, 2) * SQUARE_CM
+    obj3 = np.concatenate([obj, np.zeros((len(obj), 1))], 1)
+    ramp = 0.04  # cm, about a pixel at 50 cm
+
+    def shade(u, v):
+        def wave(s):  # distance to the nearest line, signed by the square's parity
+            q = s / SQUARE_CM
+            return np.where(np.floor(q) % 2 == 0, 1.0, -1.0) * np.minimum(q % 1, 1 - q % 1) \
+                * SQUARE_CM
+        val = 0.5 + 0.5 * np.clip(wave(u) / ramp, -1, 1) * np.clip(wave(v) / ramp, -1, 1)
+        on = (u > -SQUARE_CM) & (u < w * SQUARE_CM) & (v > -SQUARE_CM) & (v < h * SQUARE_CM)
+        return np.where(on, 20 + 210 * val, 110.0)
+
+    def render(R, t, i):
+        Hb = np.stack([R[:, 0], R[:, 1], t], 1)      # board (u, v, 1) → camera ray
+        r = rays[i]
+        q = np.stack([r[..., 0], r[..., 1], np.ones((H, W))], -1) @ np.linalg.inv(Hb).T
+        img = shade(q[..., 0] / q[..., 2], q[..., 1] / q[..., 2])
+        img = img + rng.normal(0, CAL_NOISE, img.shape)
+        return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+    lefts, rights, truth_l, truth_r = [], [], [], []
+    centre = np.array([(w - 1) * SQUARE_CM / 2, (h - 1) * SQUARE_CM / 2, 0.0])
+    while len(lefts) < CAL_PAIRS:
+        R = _rodrigues_np(rng.uniform(-0.35, 0.35, 3))
+        t = np.array([rng.uniform(-8, 8), rng.uniform(-5, 5), rng.uniform(40, 70)]) - R @ centre
+        Rr, tr = R_st @ R, R_st @ t + T_st
+        pl, pr = _project_np(obj3, R, t, 0), _project_np(obj3, Rr, tr, 1)
+        if min(pl.min(), pr.min()) < 40 or max(pl[:, 0].max(), pr[:, 0].max()) > W - 40 \
+                or max(pl[:, 1].max(), pr[:, 1].max()) > H - 40:
+            continue
+        lefts.append(render(R, t, 0))
+        rights.append(render(Rr, tr, 1))
+        truth_l.append(pl)
+        truth_r.append(pr)
+    return lefts, rights, np.asarray(truth_l), np.asarray(truth_r)
+
+
+def plane_pair(rng):
+    """The distorted rig facing a textured plane PLANE_CM in front of the
+    left camera (fronto-parallel to it), 0.15 cm a texel: each pixel's ray
+    meets the plane."""
+    R_st, T_st = _rodrigues_np(CAL_ROT), np.asarray(CAL_T)
+    texel = 0.15
+    tex = texture(rng, 1100, 1700)
+    out = []
+    for i in (0, 1):
+        r = _rays(i)
+        ray = np.stack([r[..., 0], r[..., 1], np.ones((H, W))], -1)
+        if i == 0:
+            X = ray * PLANE_CM
+        else:  # X_l = Rᵀ(s·ray − T) with z_l = PLANE_CM
+            d = ray @ R_st            # Rᵀ·ray, row-wise
+            RtT = R_st.T @ T_st
+            s = (PLANE_CM + RtT[2]) / d[..., 2]
+            X = s[..., None] * d - RtT
+        img = _bilinear_np(tex, X[..., 0] / texel + 850, X[..., 1] / texel + 550)
+        out.append(img.astype(np.float32))
+    return out
+
+
+def sfm_frames(rng):
+    """SFM_FRAMES 1280x720 frames of a camera translating SFM_STEP_CM a frame
+    along x, with a wobble along y, before two fronto-parallel textured
+    planes: a far one filling the view and a near band across it (rows
+    NEAR_BAND), each shifted by its own parallax (f·shift/Z, bilinear), with
+    noise of 1 grey level. Returns (frames, the camera centres (F, 3) in
+    cm)."""
+    f = CAL_F
+    y0, bh = NEAR_BAND
+    travel = f * SFM_STEP_CM * SFM_FRAMES
+    far = texture(rng, H + 80, W + int(travel / SFM_Z[0]) + 80)
+    near = texture(rng, bh + 80, W + int(travel / SFM_Z[1]) + 80)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    band = (ys >= y0) & (ys < y0 + bh)
+    frames, centres = [], []
+    for k in range(SFM_FRAMES):
+        c = np.array([SFM_STEP_CM * k, 0.3 * np.sin(k / 6.0), 0.0])
+        # a plane at depth Z moves against the camera by f·c/Z pixels
+        img = _bilinear_np(far, xs + f * c[0] / SFM_Z[0] + 40, ys + f * c[1] / SFM_Z[0] + 40)
+        img = np.where(band, _bilinear_np(near, xs + f * c[0] / SFM_Z[1] + 40,
+                                          ys - y0 + f * c[1] / SFM_Z[1] + 40), img)
+        frames.append((img + rng.normal(0, 1.0, img.shape)).astype(np.float32))
+        centres.append(c)
+    return frames, np.asarray(centres)
+
+
+def calib_sfm_phase(torch, card: str):
+    """Phase 14, calibration and SfM on the card, on inputs rendered here
+    with numpy from SEED (the card's host may lack cv2 and imageio):
+
+    a. twelve 1280x720 stereo pairs of a 9x6 board (:func:`board_views`):
+       ``detect_chessboard`` on all 24 images, against the true corners and
+       against the same calls on the CPU (within CORNER_TOL px), timed;
+       ``calibrate_camera`` for both cameras, ``stereo_calibrate`` with
+       ``fix_intrinsic`` (from the two mono results) and with ``UNIVERSAL``,
+       each against the truth (K within 0.5%, RMS under 0.3 px, |T| within
+       1%) and against the CPU on the card's corners (within CALIB_TOL
+       relative), with ms per LM iteration and the iteration count;
+       ``stereo_rectify`` (the calibrate app's ``rectify_calibration``) and
+       ``rectification_epipolar_error`` (mean |Δy| under 0.3 px);
+    b. ``DepthPipeline(production_preset())`` built from the universal
+       calibration on a pair of the rig facing a textured plane at
+       PLANE_CM: median depth within 2%; the frame's kernel launches
+       replayed against their plain versions (exact), the next frame
+       counted (every kernel of the production path must launch);
+    c. a 64-frame sequence (:func:`sfm_frames`): ``apps.sfm.build_tracks``
+       (512 corners), ``chain_poses`` with draws from one CPU
+       ``torch.Generator`` (seed 1), ``distributed_slam_ba`` (10 iterations)
+       on a mesh of ``["cuda:0"]`` and of ``["cuda:0"] * 4`` (equal within
+       SFM_TOL), the BA's RMS below its start and the trajectory mainly
+       along x; the same sequence on the CPU (kp, matches and poses, then
+       the BA); ``distributed_mono_ba`` on a's left views (four positions)
+       against ``calibrate_camera``;
+    d. prints detection ms (card, CPU), ms per LM iteration, build_tracks
+       ms, ms per BA iteration on 1 and 4 positions, host syncs per RANSAC
+       pair and per BA chunk, and the phase's peak device memory, beside
+       the card.
+
+    Returns the launches of the calibrated production frame by kernel name."""
+    from stereovision_tpu_torch.apps import calibrate as cal_app
+    from stereovision_tpu_torch.apps import sfm
+    from stereovision_tpu_torch.calib import (
+        CalibrationFlags, calibrate_camera, detect_chessboard, stereo_calibrate,
+    )
+    from stereovision_tpu_torch.calib.verify import rectification_epipolar_error
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.parallel import make_mesh
+    from stereovision_tpu_torch.parallel.ba import distributed_mono_ba, mono_ba_init
+    from stereovision_tpu_torch.parallel.ba_landmarks import distributed_slam_ba
+    from stereovision_tpu_torch.pipeline import DepthPipeline
+    from stereovision_tpu_torch.stereo import production_preset
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(SEED + 14)
+    lefts, rights, truth_l, truth_r = board_views(rng)
+
+    def timed(fn):
+        return host_timed(torch, fn)
+
+    # -- a. detection --------------------------------------------------------
+    detect_chessboard(lefts[0], BOARD)  # the first call pays for the allocator
+    found, det_ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        res, ms = timed(lambda: [detect_chessboard(img, BOARD, device=dev)
+                                 for img in lefts + rights])
+        check(all(f for f, _ in res), f"detect_chessboard ({dev}) missed a board")
+        found[dev] = np.asarray([c for _, c in res])
+        det_ms[dev] = ms / len(res)
+    corners_l, corners_r = found["cuda"][:CAL_PAIRS], found["cuda"][CAL_PAIRS:]
+    truth = np.concatenate([truth_l, truth_r])
+    # the detector may order a board from either end (a 180° turn of the grid)
+    err_truth = max(min(np.abs(c - t).max(), np.abs(c[::-1] - t).max())
+                    for c, t in zip(found["cuda"], truth))
+    check(err_truth < 0.3, f"detected corners {err_truth} px from the truth")
+    err_cpu = np.abs(found["cuda"] - found["cpu"]).max()
+    check(err_cpu <= CORNER_TOL, f"corners on the card {err_cpu} px from the CPU's")
+    print(f"phase 14 detect_chessboard at {W}x{H}: {det_ms['cuda']:.2f} ms an image on the card, "
+          f"{det_ms['cpu']:.2f} ms on the CPU ({2 * CAL_PAIRS} images); corners within "
+          f"{err_truth:.4f} px of the truth, card against CPU {err_cpu:.2e} px; card {card}")
+
+    # -- a. calibration ------------------------------------------------------
+    obj = cal_app.board_object_points(BOARD, SQUARE_CM)
+    size = (W, H)
+    runs = {
+        "mono_left": lambda dev, tr: calibrate_camera(obj, corners_l, size, device=dev, trace=tr),
+        "mono_right": lambda dev, tr: calibrate_camera(obj, corners_r, size, device=dev, trace=tr),
+    }
+    calibrate_camera(obj, corners_l[:3], size)  # the first call pays for the solver libraries
+    results = {}
+    for name, run in runs.items():
+        results[name] = calib_run(torch, name, run, card)
+    ml, mr = results["mono_left"], results["mono_right"]
+    for name, flags, kw in (
+            ("stereo_fix_intrinsic", CalibrationFlags(fix_intrinsic=True),
+             dict(K1=ml["camera_matrix"], d1=ml["distortion_coefficients"],
+                  K2=mr["camera_matrix"], d2=mr["distortion_coefficients"])),
+            ("stereo_universal", CalibrationFlags.UNIVERSAL, {})):
+        results[name] = calib_run(
+            torch, name,
+            lambda dev, tr, flags=flags, kw=kw: stereo_calibrate(
+                obj, corners_l, corners_r, size, flags=flags, device=dev, trace=tr, **kw),
+            card)
+    for name, out in results.items():
+        if name.startswith("mono"):
+            Ks = [(out["camera_matrix"], _k(0 if name.endswith("left") else 1))]
+            rms = out["reprojection_error"]
+        else:
+            Ks = [(out["mtx_left"], _k(0)), (out["mtx_right"], _k(1))]
+            rms = out["ret"]
+            t_err = abs(np.linalg.norm(out["T"]) / np.linalg.norm(CAL_T) - 1)
+            check(t_err < 0.01, f"{name}: |T| off by {t_err:.4f}")
+        k_err = max(float(np.max(np.abs(Ke - Kt)[Kt != 0] / Kt[Kt != 0])) for Ke, Kt in Ks)
+        check(k_err < 0.005, f"{name}: K off the truth by {k_err:.4f}")
+        check(rms < 0.3, f"{name}: RMS {rms} px")
+        print(f"phase 14 {name}: RMS {rms:.4f} px, K within {k_err:.5f} of the truth")
+
+    full = cal_app.rectify_calibration(results["stereo_universal"], size, BOARD, SQUARE_CM)
+    epi, epi_ms = timed(lambda: rectification_epipolar_error(full, zip(lefts, rights), BOARD))
+    check(epi["n_pairs"] == CAL_PAIRS and epi["mean_abs_dy"] < 0.3,
+          f"rectification check {epi}")
+    print(f"phase 14 rectification (universal): mean |dy| {epi['mean_abs_dy']:.4f} px (max "
+          f"{epi['max_abs_dy']:.4f}) over {epi['n_pairs']} pairs, {epi_ms:.1f} ms")
+
+    # -- b. the calibrated DepthPipeline -------------------------------------
+    left_p, right_p = plane_pair(rng)
+    pipe = DepthPipeline(full, production_preset(), min_depth=0.2, max_depth=4.0)
+    with Recorder(torch, [(sgm_cuda, name) for name in KERNELS]) as rec:
+        pipe(left_p, right_p)
+        torch.cuda.synchronize()
+    parity(torch, sgm_cuda, rec.calls, "the calibrated production frame")
+    sgm_cuda.reset_launch_counts()
+    res = pipe(left_p, right_p)
+    torch.cuda.synchronize()
+    launches = {k: sgm_cuda.launch_counts()[k] for k in KERNELS}
+    for k in KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the calibrated frame")
+    core = (slice(H // 4, 3 * H // 4), slice(W // 4, 3 * W // 4))
+    z = res.depth_m[core][res.confidence[core] > 0]
+    check(z.numel() > 0.5 * res.depth_m[core].numel(), "too few confident plane pixels")
+    z_med = z.median().item()
+    check(abs(z_med - PLANE_CM / 100) < 0.02 * PLANE_CM / 100,
+          f"calibrated frame: median depth {z_med} m, the plane is at {PLANE_CM / 100} m")
+    print(f"phase 14 calibrated production frame: median depth {z_med:.4f} m (plane at "
+          f"{PLANE_CM / 100} m), launches {launches}, each exact against its plain version")
+
+    # -- c. SfM --------------------------------------------------------------
+    frames, centres = sfm_frames(rng)
+    K = _k(0)
+    sfm.build_tracks(frames[:2], K, SFM_CORNERS)  # the first call pays for the allocator
+    (kp, track_of, n_tracks, matches), tracks_ms = timed(
+        lambda: sfm.build_tracks(frames, K, SFM_CORNERS))
+    (kp_c, _, n_tracks_c, matches_c), tracks_cpu_ms = timed(
+        lambda: sfm.build_tracks(frames, K, SFM_CORNERS, device="cpu"))
+    check(np.array_equal(kp, kp_c), "Harris corners differ between the card and the CPU")
+    same = np.mean([np.array_equal(a[0][a[1]], b[0][b[1]]) and np.array_equal(a[1], b[1])
+                    for a, b in zip(matches, matches_c)])
+    print(f"phase 14 build_tracks: {tracks_ms:.1f} ms for {SFM_FRAMES} frames at {W}x{H}, "
+          f"{SFM_CORNERS} corners (CPU {tracks_cpu_ms:.1f} ms); {n_tracks} tracks (CPU "
+          f"{n_tracks_c}); corners equal, matches equal on {same:.3f} of the pairs")
+    L, uv, lid, mask = sfm.observations(kp, track_of, n_tracks, 3)
+    check(L >= 100, f"only {L} stable tracks")
+
+    def chain(dev):
+        return sfm.chain_poses(kp, matches, K, torch.Generator().manual_seed(1), device=dev)
+
+    poses, chain_ms = timed(lambda: chain("cuda"))
+    poses_c = chain("cpu")
+    chain_err = rel(poses, poses_c)
+    n_sync, where = sync_count(torch, lambda: sfm.chain_poses(
+        kp[:2], matches[:1], K, torch.Generator().manual_seed(1), device="cuda"))
+    lms = sfm.init_landmarks(poses, K, L, uv, lid, mask)
+    intr = np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]])
+    _, _, rms0 = distributed_slam_ba(uv, lid, mask, intr, poses, lms,
+                                     make_mesh(devices=["cuda:0"]), iters=0)
+    ba = {}
+    for n in (1, 4):
+        mesh = make_mesh(devices=["cuda:0"] * n)
+        distributed_slam_ba(uv, lid, mask, intr, poses, lms, mesh, iters=1)  # warm-up
+        ba[n], ms = timed(lambda mesh=mesh: distributed_slam_ba(uv, lid, mask, intr, poses, lms,
+                                                                mesh, iters=BA_ITERS))
+        ba[n] = tuple(x.cpu().numpy() for x in ba[n]) + (ms / BA_ITERS,)
+    ba_err = max(rel(a, b) for a, b in zip(ba[1][:2], ba[4][:2]))
+    check(ba_err <= SFM_TOL, f"BA on 1 and 4 positions differs by {ba_err}")
+    n_sync_ba, where_ba = sync_count(torch, lambda: distributed_slam_ba(
+        uv, lid, mask, intr, poses, lms, make_mesh(devices=["cuda:0"] * 4), iters=BA_CHUNK))
+    p_out, _, rms, _ = ba[1]
+    check(float(rms) < float(rms0), f"BA RMS {float(rms)} not below its start {float(rms0)}")
+    R_out = np.stack([_rodrigues_np(r) for r in p_out[:, :3]])
+    centre_out = -np.einsum("fji,fj->fi", R_out, p_out[:, 3:])   # −Rᵀt
+    step = np.abs(np.diff(centre_out, axis=0)).sum(axis=0)
+    check(step[0] > step[1] + step[2], f"the camera centres' steps {step} are not mainly along x")
+    ba_c = distributed_slam_ba(uv, lid, mask, intr, poses_c,
+                               sfm.init_landmarks(poses_c, K, L, uv, lid, mask, device="cpu"),
+                               make_mesh(devices=["cpu"]), iters=BA_ITERS)
+    cpu_err = max(rel(a, b.numpy()) for a, b in zip(ba[1][:2], ba_c[:2]))
+    print(f"phase 14 SfM: {L} landmarks over {SFM_FRAMES} frames; pose chain {chain_ms:.1f} ms "
+          f"({chain_ms / (SFM_FRAMES - 1):.2f} ms a pair), card against CPU {chain_err:.2e}; "
+          f"{n_sync} host syncs a RANSAC pair {where}; BA RMS {float(rms0):.4f} -> "
+          f"{float(rms):.4f} px in {BA_ITERS} iterations, {ba[1][3]:.2f} ms an iteration on 1 "
+          f"position, {ba[4][3]:.2f} on 4 (one card), 1 against 4 {ba_err:.2e}, card against "
+          f"CPU {cpu_err:.2e}; {n_sync_ba} host syncs a BA chunk of {BA_CHUNK} on 4 positions "
+          f"{where_ba}; steps |dx| {step[0]:.3f} |dy| {step[1]:.3f} |dz| {step[2]:.3f}")
+    check(cpu_err <= SFM_TOL, f"the BA on the card differs from the CPU's by {cpu_err}")
+
+    intr0, poses0 = mono_ba_init(obj, corners_l, size)
+    (g, _, rms_m), mba_ms = timed(lambda: distributed_mono_ba(
+        obj, corners_l, intr0, poses0, make_mesh(devices=["cuda:0"] * 4), iters=30))
+    k_rel = rel(g.cpu().numpy()[:4], [ml["camera_matrix"][i] for i in ((0, 0), (1, 1), (0, 2),
+                                                                          (1, 2))])
+    check(float(rms_m) <= ml["reprojection_error"] * 1.01 and k_rel < 1e-4,
+          f"distributed_mono_ba: RMS {float(rms_m)}, K {k_rel} from calibrate_camera's")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 14 distributed_mono_ba (4 positions, 30 iterations): {mba_ms:.1f} ms, RMS "
+          f"{float(rms_m):.4f} px (calibrate_camera {ml['reprojection_error']:.4f}), K within "
+          f"{k_rel:.2e}; phase peak device memory {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} "
+          f"GB its own), {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return launches
+
+
+def rel(a, b) -> float:
+    """max |a − b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def host_timed(torch, fn):
+    """(fn(), its ms on the host's clock, the card synchronised before and
+    after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def calib_run(torch, name, run, card):
+    """One calibration on the card (LM iterations counted and timed) and the
+    same call on the CPU: K, dist, R, T within CALIB_TOL relative."""
+    trace = []
+    out, ms = host_timed(torch, lambda: run("cuda", trace))
+    ref = run("cpu", None)
+    keys = [k for k in ("camera_matrix", "distortion_coefficients", "mtx_left", "dist_left",
+                        "mtx_right", "dist_right", "R", "T") if k in out]
+    err = max(rel(out[k], ref[k]) for k in keys)
+    check(err <= CALIB_TOL, f"{name}: card against CPU {err}")
+    print(f"phase 14 {name}: {len(trace)} LM iterations ({sum(trace)} damped solves), "
+          f"{ms / max(len(trace), 1):.2f} ms an iteration ({ms:.1f} ms), card against CPU "
+          f"{err:.2e}; card {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2271,9 +2705,12 @@ def main() -> int:
     fused = fused_phase(torch, card, cal, planes)
     torch.cuda.empty_cache()
     mono = mono_models_phase(torch, card, cal, planes)
+    torch.cuda.empty_cache()
+    calibrated = calib_sfm_phase(torch, card)
     for r in rows:  # launches in one fused frame (its #7 in the gather warp), by network
         r["fused_launches"] = fused["launches"].get(r["name"], 0)
         r["mono_fused_launches"] = {arch: n.get(r["name"], 0) for arch, n in mono.items()}
+        r["calibrated_frame_launches"] = calibrated.get(r["name"], 0)
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input

@@ -1,11 +1,13 @@
 """Command-line entry points of the port, the counterparts of
 ``stereovision_tpu/apps``:
 
+    python -m stereovision_tpu_torch.apps.calibrate mono|stereo|universal …
     python -m stereovision_tpu_torch.apps.depth …
     python -m stereovision_tpu_torch.apps.eval_disparity …
     python -m stereovision_tpu_torch.apps.fused …
     python -m stereovision_tpu_torch.apps.mono_ai …
     python -m stereovision_tpu_torch.apps.mono_motion …
+    python -m stereovision_tpu_torch.apps.sfm …
 
 Each takes the reference's flags plus ``--device`` (default ``cuda``).
 Image files are read and written with ``imageio`` (and ``cv2`` for PNG

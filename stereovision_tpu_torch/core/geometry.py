@@ -6,7 +6,9 @@ rectification (``stereo_rectify``, which ``proc_scale`` re-runs at the
 processing size) and the free-scaling camera matrix, the rectification
 maps, metric depth and the point cloud; and the homography fit and its
 application that the fused path's ego-motion runs (:func:`homography_dlt`,
-:func:`apply_homography`). Calibration data is float64; the
+:func:`apply_homography`); and the residual model and two-view geometry of
+calibration and SfM (:func:`project_points`, :func:`se3_compose`,
+:func:`essential_from_rt`, :func:`triangulate`). Calibration data is float64; the
 maps are computed in float64 and stored as float32, as in the reference.
 OpenCV's conventions: ``K = [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]``,
 distortion ``(k1, k2, p1, p2, k3[, k4, k5, k6])`` zero-padded, and ``R, T``
@@ -77,6 +79,20 @@ def inverse_rodrigues(R) -> torch.Tensor:
     return torch.where(use_near_pi, near_pi, generic)
 
 
+def se3_compose(r1, t1, r2, t2):
+    """Compose two rigid transforms given as (rvec, tvec): x → R2(R1 x + t1)
+    + t2. Returns (rvec, tvec)."""
+    R1, R2 = rodrigues(r1), rodrigues(r2)
+    t = (R2 @ _f64(t1)[..., None])[..., 0] + _f64(t2)
+    return inverse_rodrigues(R2 @ R1), t
+
+
+def se3_inverse(rvec, tvec):
+    """(rvec, tvec) of the inverse transform."""
+    Rt = rodrigues(rvec).transpose(-1, -2)
+    return inverse_rodrigues(Rt), -(Rt @ _f64(tvec)[..., None])[..., 0]
+
+
 def pad_dist(dist: torch.Tensor, n: int = 8) -> torch.Tensor:
     """Zero-pad a distortion vector to ``n`` coefficients (k1 k2 p1 p2 k3 k4 k5 k6)."""
     dist = torch.ravel(dist)
@@ -96,6 +112,22 @@ def distort(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     xd = x * radial + p1 * xy2 + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + p2 * xy2
     return torch.stack([xd, yd], dim=-1)
+
+
+def project_points(obj_pts, rvec, tvec, K, dist) -> torch.Tensor:
+    """World points (…, N, 3) → pixel coords (…, N, 2), cv2.projectPoints:
+    the residual model of the calibration solvers. ``rvec``/``tvec`` (…, 3)
+    and ``K`` (…, 3, 3) broadcast over the leading dims."""
+    R = rodrigues(rvec)
+    cam = obj_pts @ R.transpose(-1, -2) + tvec[..., None, :]
+    z = cam[..., 2:3]
+    xy = cam[..., :2] / torch.where(z.abs() < 1e-12, 1e-12, z)
+    xyd = distort(xy, dist)
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    u = xyd[..., 0] * fx[..., None] + cx[..., None]
+    v = xyd[..., 1] * fy[..., None] + cy[..., None]
+    return torch.stack([u, v], dim=-1)
 
 
 def undistort_normalized(xy_d: torch.Tensor, dist, iters: int = 8) -> torch.Tensor:
@@ -130,6 +162,49 @@ def undistort_points(pts, K, dist, R=None, P=None) -> torch.Tensor:
         P = _f64(P, K)
         xy = torch.stack([xy[..., 0] * P[0, 0] + P[0, 2], xy[..., 1] * P[1, 1] + P[1, 2]], dim=-1)
     return xy
+
+
+# ---------------------------------------------------------------------------
+# Two-view geometry
+# ---------------------------------------------------------------------------
+
+
+def skew(t) -> torch.Tensor:
+    """(…, 3) → the cross-product matrices (…, 3, 3)."""
+    x, y, z = t.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack([torch.stack([o, -z, y], dim=-1), torch.stack([z, o, -x], dim=-1),
+                        torch.stack([-y, x, o], dim=-1)], dim=-2)
+
+
+def essential_from_rt(R, T) -> torch.Tensor:
+    """E = [T]x R (cv2.stereoCalibrate's convention: x_r = R x_l + T)."""
+    R = _f64(R)
+    return skew(_f64(T, R)) @ R
+
+
+def fundamental_from_krt(K1, K2, R, T) -> torch.Tensor:
+    """F = K2⁻ᵀ E K1⁻¹."""
+    K1 = _f64(K1)
+    E = essential_from_rt(_f64(R, K1), _f64(T, K1))
+    return torch.linalg.inv(_f64(K2, K1)).T @ E @ torch.linalg.inv(K1)
+
+
+def triangulate(P1, P2, pts1, pts2) -> torch.Tensor:
+    """Linear (DLT) triangulation. P1, P2: (…, 3, 4) projections; pts (…, 2)
+    pixels. Returns (…, 3) points in the frame the projections map from:
+    the eigenvector of the 4×4 AᵀA for its smallest eigenvalue (one batched
+    ``eigh``), dehomogenised (its sign cancels)."""
+    rows = []
+    for P, pts in ((P1, pts1), (P2, pts2)):
+        u, v = pts[..., 0:1], pts[..., 1:2]
+        rows.append(u * P[..., 2, :] - P[..., 0, :])
+        rows.append(v * P[..., 2, :] - P[..., 1, :])
+    A = torch.stack(torch.broadcast_tensors(*rows), dim=-2)   # (…, 4, 4)
+    _, V = torch.linalg.eigh(_matmul(A.transpose(-1, -2), A))
+    X = V[..., :, 0]
+    w = X[..., 3:]
+    return X[..., :3] / torch.where(w.abs() < 1e-12, 1e-12, w)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ apps: the exact remap and its separable form (two passes of the
 the colormaps; and the pieces of the fused path: luma, Gaussian, bilateral
 and box filters, the occlusion detector's block statistics and histogram,
 and the min-max normalization; and the mono apps' percentile
-normalization. The rest of the reference module comes with ROADMAP.md
-queue 1 item 8.
+normalization; and the pieces of calibration and the sparse features:
+RGB luma, the Sobel gradients, the local contrast normalization, the
+Shannon entropy and the one-word Hamming distance.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ def grayscale_bgr(img: torch.Tensor) -> torch.Tensor:
     """(..., H, W, 3) BGR → (..., H, W) luma, cv2 BGR2GRAY's weights."""
     b, g, r = img[..., 0], img[..., 1], img[..., 2]
     return _BGR_LUMA[0] * b + _BGR_LUMA[1] * g + _BGR_LUMA[2] * r
+
+
+def grayscale_rgb(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) RGB → (..., H, W) luma, the same weights."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return _BGR_LUMA[2] * r + _BGR_LUMA[1] * g + _BGR_LUMA[0] * b
 
 
 def _bilinear_gather(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -343,6 +350,52 @@ def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
     return window_sum(img, ksize) * (1.0 / (ksize * ksize))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (IEEE's, and XLA's): float32 through
+    float64, which rounds exactly back; the CPU's vectorized float32
+    ``torch.sqrt`` is off by an ulp for a few inputs in a hundred."""
+    return torch.sqrt(x.double()).to(x.dtype) if x.dtype == torch.float32 else torch.sqrt(x)
+
+
+def hypot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """√(a² + b²) in ``jnp.hypot``'s form: the larger magnitude times
+    √(1 + r²), r the ratio of the smaller to it."""
+    a, b = a.abs(), b.abs()
+    hi, lo = torch.maximum(a, b), torch.minimum(a, b)
+    r = lo / torch.where(hi == 0, 1.0, hi)
+    return torch.where(hi == 0, hi, hi * sqrt_rn(1 + r * r))
+
+
+def local_normalize(img: torch.Tensor, block: int = 33, target_std: float = 48.0,
+                    mid: float = 127.5) -> torch.Tensor:
+    """Adaptive contrast normalization: subtract the local mean and rescale
+    by the local standard deviation over a ``block`` window, clipped to
+    [0, 255] (the chessboard detector's retry on low-contrast, unevenly lit
+    boards)."""
+    x = img.to(torch.float32)
+    mu = box_filter(x, block)
+    sd = sqrt_rn((box_filter(x * x, block) - mu * mu).clamp(min=0.0))
+    # a true division (a Python number over a tensor multiplies by the reciprocal)
+    gain = torch.full_like(sd, target_std) / (sd + 2.0)
+    return (mid + (x - mu) * gain).clamp(0.0, 255.0)
+
+
+def sobel(img: torch.Tensor):
+    """Sobel dx, dy on (..., H, W) with replicate borders (3×3,
+    cv2-compatible): a [1, 2, 1] smoothing pass and a [−1, 0, 1] difference
+    pass, each the weighted sum of three shifted views."""
+    def conv1d(x, k, axis):
+        xp = _pad_replicate(x, 1, axis)
+        n = x.shape[axis]
+        return (xp.narrow(axis, 0, n) * k[0] + xp.narrow(axis, 1, n) * k[1]
+                + xp.narrow(axis, 2, n) * k[2])
+
+    smooth, diff = (1.0, 2.0, 1.0), (-1.0, 0.0, 1.0)
+    gx = conv1d(conv1d(img, smooth, -2), diff, -1)
+    gy = conv1d(conv1d(img, diff, -2), smooth, -1)
+    return gx, gy
+
+
 def block_std(img: torch.Tensor, block: int = 48) -> torch.Tensor:
     """Population std over non-overlapping block×block tiles →
     (..., H//block, W//block)."""
@@ -362,6 +415,13 @@ def histogram256(img: torch.Tensor) -> torch.Tensor:
     counts = torch.zeros(256, dtype=torch.int32, device=img.device)
     counts.scatter_add_(0, q, torch.ones_like(q, dtype=torch.int32))
     return counts.to(torch.float32)
+
+
+def shannon_entropy(img: torch.Tensor) -> torch.Tensor:
+    """The 256-bin Shannon entropy (bits) of a [0, 255] image."""
+    h = histogram256(img)
+    p = h / (h.sum() + 1e-12)
+    return -torch.where(p > 0, p * torch.log2(torch.where(p > 0, p, 1.0)), 0.0).sum()
 
 
 def minmax_normalize(img: torch.Tensor, lo: float = 0.0, hi: float = 255.0) -> torch.Tensor:
@@ -454,6 +514,11 @@ def popcount32(v: torch.Tensor) -> torch.Tensor:
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
     return (v & 0xFF) + ((v >> 8) & 0xFF) + ((v >> 16) & 0xFF) + ((v >> 24) & 0xFF)
+
+
+def hamming32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between int32 census words, word by word."""
+    return popcount32(a ^ b)
 
 
 def hamming_words(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -6,3 +6,11 @@ from stereovision_tpu_torch.mono.depth import (  # noqa: F401
     flow_depth_init,
     flow_depth_step,
 )
+from stereovision_tpu_torch.mono.features import (  # noqa: F401
+    harris_corners,
+    hog_descriptors,
+    match_descriptors,
+    ransac_essential,
+    recover_pose_and_triangulate,
+    sparse_motion_depth,
+)

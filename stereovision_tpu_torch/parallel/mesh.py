@@ -11,8 +11,8 @@ overlap by themselves. Axes, as in the reference:
 - ``tile``: row tiles of one disparity solve, with halo rows from the
   neighbouring tiles.
 
-Data moves between mesh positions only through :func:`ppermute` and
-:func:`halo_exchange`.
+Data moves between mesh positions only through :func:`ppermute`,
+:func:`halo_exchange` and :func:`psum`.
 """
 
 from __future__ import annotations
@@ -68,6 +68,16 @@ def ppermute(rows: list[torch.Tensor], perm) -> list[torch.Tensor]:
     return [sent[i] if i in sent else torch.zeros_like(r) for i, r in enumerate(rows)]
 
 
+def psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``jax.lax.psum`` over one mesh axis: ``parts[i]`` lives on position
+    i's device; their sum, taken on the first position's device in position
+    order, is sent back to every position."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return [total.to(p.device) for p in parts]
+
+
 def halo_exchange(slabs: list[torch.Tensor], halo: int) -> list[torch.Tensor]:
     """Row slabs of the tile axis (in order, each on its device) → each slab
     with ``halo`` rows of its upper and lower neighbour above and below it;
@@ -86,9 +96,9 @@ def halo_exchange(slabs: list[torch.Tensor], halo: int) -> list[torch.Tensor]:
 def initialize_multihost(coordinator: str | None = None, num_processes: int | None = None,
                          process_id: int | None = None) -> None:
     """The reference's multi-host bootstrap (``jax.distributed.initialize``).
-    Process groups across hosts come with the distributed bundle adjustment
-    (ROADMAP.md queue 1 item 9)."""
+    Process groups across hosts come with serving (ROADMAP.md queue 1
+    item 9, serving and multi-host)."""
     raise NotImplementedError(
         "initialize_multihost is not ported yet: the mesh is one process's device grid; "
-        "torch.distributed process groups across hosts come with the distributed BA "
-        "(ROADMAP.md queue 1 item 9)")
+        "torch.distributed process groups across hosts come with serving "
+        "(ROADMAP.md queue 1 item 9, serving and multi-host)")

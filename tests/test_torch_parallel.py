@@ -189,7 +189,7 @@ def test_make_mesh_without_a_card_raises():
 
 
 def test_initialize_multihost_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9, serving and multi-host"):
         pmesh.initialize_multihost()
 
 

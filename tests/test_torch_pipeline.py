@@ -251,6 +251,10 @@ def test_port_imports_no_jax():
         "fusion/legend", "mono/__init__", "mono/flow", "mono/ego", "mono/depth", "mono/nn",
         "models/__init__", "models/midas", "models/checkpoint", "utils/logging",
         "utils/annotate", "apps/fused")} <= scanned
+    # calibration and SfM: calib, the sparse features, both bundle adjusters, the apps
+    assert {f"stereovision_tpu_torch/{name}.py" for name in (
+        "calib/__init__", "calib/board", "calib/ba", "calib/verify", "mono/features",
+        "parallel/ba", "parallel/ba_landmarks", "apps/calibrate", "apps/sfm")} <= scanned
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in _FORBIDDEN]
     assert not bad, bad
