@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's DepthPipeline, its tile-parallel engines, its
 measurement scripts, FusedPipeline, the mono-depth networks, calibration
-and SfM on one CUDA card and check them.
+and SfM, the serving daemon, MidasSmall's training and meshes across
+processes on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -132,14 +133,35 @@ each of which raises (exit code non-zero, no result line) on failure:
    m (launches replayed and counted); a 64-frame sequence through
    ``build_tracks``, the RANSAC pose chain and the landmark BA on 1 and 4
    mesh positions, against each other and the CPU; the mono BA against
-   ``calibrate_camera``.
+   ``calibrate_camera``;
+15. (:func:`serve_phase`) ``apps.serve`` at 1280x720, D=320, over PGM
+   pairs of the production rig written here: serve's defaults (``hier``,
+   refine 32) with ``ping``, ``set``, ``rescale 0.5``, ``stats`` and
+   ``shutdown``; ``--sgm-mode prod``; ``--watch --once --batch 8``;
+   ``--mode fused --scale 0.33`` with serve's clock fixed: every served
+   npz bit for bit against the pipeline called directly; one request of
+   each depth mode counted and its launches replayed (exact); the syncs of
+   one ``dispatch`` of each mode; ms a request, ``fps``, ``wall_fps``;
+16. (:func:`train_phase`) ``models.train_synthetic.main`` at its
+   defaults for 20 steps, ms/step, one step on the card against the CPU
+   (TF32 off), the checkpoint read back through ``create_model``;
+17. (:func:`multihost_phase`) a one-process NCCL group (``psum``, the
+   landmark BA of phase 14), then two child processes in a gloo group
+   sharing the card (``psum``, ``halo_exchange``, ``sharded_disparity``
+   at 720p on two row tiles, the landmark BA), each against the
+   one-process mesh; a child that fails or runs past its time limit
+   fails the phase.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
 and ``host_us`` (one wrapper call, :func:`wrapper_host_us`).
 
+Each row also has ``served_launches``: its launches in one served request
+of each depth mode (phase 15, ``hier`` and ``prod``).
+
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it is the card; before that, one ``{"kernels": [...]}`` line.
+line before it is the card; before that, one ``{"kernels": [...]}`` line,
+and before that the script's wall time.
 """
 
 from __future__ import annotations
@@ -2197,7 +2219,8 @@ def calib_sfm_phase(torch, card: str):
        pair and per BA chunk, and the phase's peak device memory, beside
        the card.
 
-    Returns the launches of the calibrated production frame by kernel name."""
+    Returns the launches of the calibrated production frame by kernel name,
+    and the landmark BA's problem (numpy) with its 1-position result."""
     from stereovision_tpu_torch.apps import calibrate as cal_app
     from stereovision_tpu_torch.apps import sfm
     from stereovision_tpu_torch.calib import (
@@ -2378,7 +2401,529 @@ def calib_sfm_phase(torch, card: str):
           f"{float(rms_m):.4f} px (calibrate_camera {ml['reprojection_error']:.4f}), K within "
           f"{k_rel:.2e}; phase peak device memory {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} "
           f"GB its own), {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return launches, {"problem": (uv, lid, mask, intr, poses, lms),
+                      "result": ba[1][:3]}
+
+
+# -- phase 15: the serving daemon -------------------------------------------
+SERVE_FRAMES = 4                   # stdin requests of a depth mode's run
+SERVE_WATCH = 8                    # pairs in the hot folder: one batch of 8
+SERVE_FUSED = 4                    # fused-mode requests
+SERVE_DT = 1.0 / 30.0              # the fused run's fixed clock step (s)
+SERVE_RANGE = (0.3, 10.0)          # the depth window set mid-stream (m)
+# the kernels a served request of each depth mode must launch
+SERVE_KERNELS = {"hier": ("census_words", "cost_volume", "aggregate_dual", "sum_wta",
+                          "right_disparity", "shift_gather", "speckle_counts"),
+                 "prod": tuple(KERNELS)}
+
+
+def write_pgm(path, img) -> None:
+    """A binary 8-bit PGM (``P5``), the format ``io.frames`` decodes itself."""
+    img = np.ascontiguousarray(img, np.uint8)
+    path.write_bytes(f"P5\n{img.shape[1]} {img.shape[0]}\n255\n".encode() + img.tobytes())
+
+
+def serve_run(torch, serve, sgm_cuda, argv, requests, probes=None, clock=None):
+    """``apps.serve.main(argv)`` over JSON-lines ``requests`` → (responses,
+    probed): the request whose id ``probes`` maps to "launches" is
+    dispatched with the launch counts set to 0 just before and read just
+    after, its kernel calls recorded; the one mapped to "syncs" under
+    :func:`sync_count`. ``clock`` replaces serve's ``time.monotonic``."""
+    import io
+    import types
+
+    probes, probed = probes or {}, {}
+    dispatch = serve._Server.dispatch
+    targets = [(sgm_cuda, name) for name in (*KERNELS, *FULL_KERNELS)]
+
+    def probing(self, req):
+        kind = probes.get(req.get("id"))
+        if kind == "launches":
+            torch.cuda.synchronize()
+            sgm_cuda.reset_launch_counts()
+            with Recorder(torch, targets) as rec:
+                rec_out = dispatch(self, req)
+            torch.cuda.synchronize()
+            probed["launches"] = ({k: n for k, n in sgm_cuda.launch_counts().items() if n},
+                                  rec.calls)
+            return rec_out
+        if kind == "syncs":
+            box = {}
+            probed["syncs"] = sync_count(torch, lambda: box.setdefault("out", dispatch(self, req)))
+            return box["out"]
+        return dispatch(self, req)
+
+    saved_time = serve.time
+    serve._Server.dispatch = probing
+    if clock is not None:
+        serve.time = types.SimpleNamespace(perf_counter=time.perf_counter, sleep=time.sleep,
+                                           monotonic=clock)
+    out = io.StringIO()
+    try:
+        rc = serve.main(argv, stdin=io.StringIO("\n".join(requests) + "\n"), stdout=out)
+    finally:
+        serve._Server.dispatch = dispatch
+        serve.time = saved_time
+    check(rc == 0, f"serve {argv} exited with {rc}")
+    resps = [json.loads(line) for line in out.getvalue().splitlines()]
+    bad = [r for r in resps if not r.get("ok")]
+    check(not bad, f"serve {argv}: failed responses {bad}")
+    return resps, probed
+
+
+def served_equal(resps, direct, what: str, keys) -> None:
+    """Each served response's npz against the direct pipeline's arrays for
+    the same request (``direct``: id → {key: numpy}), bit for bit."""
+    served = {r["id"]: r for r in resps if "out_npz" in r}
+    check(sorted(served) == sorted(direct), f"{what}: served ids {sorted(served)}, "
+                                            f"not {sorted(direct)}")
+    for rid, want in direct.items():
+        got = np.load(served[rid]["out_npz"])
+        for key in keys:
+            check(got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]),
+                  f"{what}: request {rid}'s {key} differs from the direct pipeline's")
+
+
+def serve_phase(torch, card: str, cal, planes):
+    """Phase 15, ``apps.serve`` on the card at full width: a calibration
+    store of the identity 720p rig and binary PGM pairs of the production
+    rig (uint8, panning 1 px a pair), written here:
+
+    a. depth mode with serve's defaults (``hier``, D=320, refine 32):
+       SERVE_FRAMES requests, ``ping``, ``set`` (the depth window), a
+       request, ``rescale 0.5``, a request at 640x360, ``stats``,
+       ``shutdown``; then ``--sgm-mode prod``; then ``--watch --once
+       --batch 8`` over SERVE_WATCH pairs (one batched dispatch); each
+       served npz bit for bit against the same pipeline built and called
+       directly on the same frames;
+    b. one request of each depth mode recorded (counts set to 0 just before
+       its dispatch, read just after: every kernel of the mode must launch)
+       and its launches replayed against their plain versions (exact); the
+       synchronising calls of one ``dispatch`` of each mode;
+    c. fused mode at ``--scale 0.33`` on phase 12's frames, serve's clock
+       fixed, bit for bit against ``FusedPipeline`` called directly with
+       the same ``t_now``; one dispatch's synchronising calls;
+    d. prints each request's ms, ``fps`` and ``wall_fps``, syncs a dispatch
+       and peak device memory beside the card.
+
+    Returns the launches of one served request by mode ("hier", "prod")."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from stereovision_tpu_torch.apps import serve
+    from stereovision_tpu_torch.io.frames import imread_gray
+    from stereovision_tpu_torch.io.store import CalibrationStore
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.pipeline import DepthPipeline, FusedPipeline
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        calib = root / "calib"
+        CalibrationStore(calib).save("stereo_calibration_data", cal)
+        left, right = (np.clip(np.rint(p), 0, 255).astype(np.uint8) for p in planes)
+        frames = root / "frames"
+        frames.mkdir()
+        n_pairs = max(SERVE_FRAMES + 2, SERVE_WATCH)
+        pair_paths = []
+        for k in range(n_pairs):
+            lp, rp = frames / f"left_{k:03d}.pgm", frames / f"right_{k:03d}.pgm"
+            write_pgm(lp, np.roll(left, k, 1))
+            write_pgm(rp, np.roll(right, k, 1))
+            pair_paths.append((lp, rp))
+        watch = root / "watch"
+        watch.mkdir()
+        for lp, rp in pair_paths[:SERVE_WATCH]:
+            shutil.copy(lp, watch / lp.name)
+            shutil.copy(rp, watch / rp.name)
+
+        def req(k, rid, out):
+            return json.dumps({"left": str(pair_paths[k][0]), "right": str(pair_paths[k][1]),
+                               "id": rid, "out": str(root / out)})
+
+        def read(k):
+            return imread_gray(pair_paths[k][0]), imread_gray(pair_paths[k][1])
+
+        def depth_arrays(pipe, k):
+            res = pipe(*read(k))
+            return {"disparity": res.disparity.cpu().numpy(),
+                    "valid": res.confidence.cpu().numpy().astype(bool),
+                    "depth_m": res.depth_m.cpu().numpy()}
+
+        base = ["--calib", str(calib), "--num-disparities", str(D), "--save-npz"]
+        keys = ("disparity", "valid", "depth_m")
+        probed, ms, stats = {}, {}, {}
+        # -- a/b. depth mode, serve's defaults (hier) ------------------------
+        reqs = [req(k, k + 1, "hier") for k in range(SERVE_FRAMES)]
+        reqs += [json.dumps({"cmd": "ping"}),
+                 json.dumps({"cmd": "set", "params": dict(zip(("min_depth", "max_depth"),
+                                                              SERVE_RANGE))}),
+                 req(SERVE_FRAMES, SERVE_FRAMES + 1, "hier"),
+                 json.dumps({"cmd": "rescale", "scale": 0.5}),
+                 req(SERVE_FRAMES + 1, SERVE_FRAMES + 2, "hier_half"),
+                 json.dumps({"cmd": "stats"}), json.dumps({"cmd": "shutdown"})]
+        resps, probed["hier"] = serve_run(torch, serve, sgm_cuda, base, reqs,
+                                          {2: "launches", 3: "syncs"})
+        check(any(r.get("pong") for r in resps), "serve: no pong")
+        check([r["depth_range"] for r in resps if "depth_range" in r] == [list(SERVE_RANGE)],
+              "serve: the depth window was not set")
+        check([r["proc_size"] for r in resps if "proc_size" in r] == [[W // 2, H // 2]],
+              "serve: rescale 0.5 did not take the processing size to half")
+        pipe = DepthPipeline.from_store(calib, num_disparities=D, mode="hier", refine_range=32)
+        direct = {k + 1: depth_arrays(pipe, k) for k in range(SERVE_FRAMES)}
+        pipe.set_depth_range(*SERVE_RANGE)
+        direct[SERVE_FRAMES + 1] = depth_arrays(pipe, SERVE_FRAMES)
+        half = DepthPipeline.from_store(calib, num_disparities=D, mode="hier", refine_range=32,
+                                        proc_scale=0.5)
+        direct[SERVE_FRAMES + 2] = depth_arrays(half, SERVE_FRAMES + 1)
+        del half
+        served_equal(resps, direct, "serve hier", keys)
+        ms["hier"] = [r["ms"] for r in resps if "out_npz" in r]
+        stats["hier"] = resps[-1]
+        # --sgm-mode prod
+        reqs = [req(k, k + 1, "prod") for k in range(SERVE_FRAMES - 1)] + [
+            json.dumps({"cmd": "stats"})]
+        resps, probed["prod"] = serve_run(torch, serve, sgm_cuda, base + ["--sgm-mode", "prod"],
+                                          reqs, {2: "launches", 3: "syncs"})
+        prod = DepthPipeline.from_store(calib, num_disparities=D, mode="prod")
+        served_equal(resps, {k + 1: depth_arrays(prod, k) for k in range(SERVE_FRAMES - 1)},
+                     "serve prod", keys)
+        del prod
+        ms["prod"] = [r["ms"] for r in resps if "out_npz" in r]
+        stats["prod"] = resps[-1]
+        # --watch --once --batch 8: one batched dispatch of SERVE_WATCH pairs
+        resps, _ = serve_run(torch, serve, sgm_cuda, base + [
+            "--watch", str(watch), "--once", "--batch", str(SERVE_WATCH),
+            "--out", str(root / "watched")], [])
+        check(resps[-1]["frames"] == SERVE_WATCH, f"watch mode served {resps[-1]['frames']} "
+                                                  f"pairs, not {SERVE_WATCH}")
+        pipe.set_depth_range(0.2, 4.0)   # the pipeline's defaults, as the watcher's
+        for k in range(SERVE_WATCH):
+            got = np.load(root / "watched" / f"serve_{k:03d}.npz")
+            want = depth_arrays(pipe, k)
+            for key in keys:
+                check(np.array_equal(got[key], want[key]),
+                      f"serve watch: pair {k}'s {key} differs from the direct pipeline's")
+        ms["watch"] = [r["ms"] for r in resps[:-1]]
+        stats["watch"] = resps[-1]
+        del pipe
+        launches = {}
+        for mode in ("hier", "prod"):
+            counts, calls = probed[mode]["launches"]
+            for k in SERVE_KERNELS[mode]:
+                check(counts.get(k, 0) > 0, f"serve {mode}: kernel {k} was not launched in one "
+                                            f"served request ({counts})")
+            check(not counts.get("aggregate_dual_chain"), f"serve {mode}: chain launches")
+            parity(torch, sgm_cuda, {k: v for k, v in calls.items() if v}, f"served {mode} request")
+            launches[mode] = counts
+            del calls
+        # -- c. fused mode ---------------------------------------------------
+        fused_dir = root / "fused"
+        fused_dir.mkdir()
+        fused_paths = []
+        for k, (fl, fr) in enumerate(fused_frames(planes, SERVE_FUSED)):
+            lp, rp = fused_dir / f"left_{k:03d}.pgm", fused_dir / f"right_{k:03d}.pgm"
+            write_pgm(lp, fl)
+            write_pgm(rp, fr)
+            fused_paths.append((lp, rp))
+        reqs = [json.dumps({"left": str(lp), "right": str(rp), "id": k + 1,
+                            "out": str(root / "fused_out")})
+                for k, (lp, rp) in enumerate(fused_paths)] + [json.dumps({"cmd": "stats"})]
+        ticks = iter(SERVE_DT * k for k in range(10 * SERVE_FUSED))
+        resps, probed["fused"] = serve_run(
+            torch, serve, sgm_cuda, base + ["--mode", "fused", "--scale", str(FUSED_SCALE)],
+            reqs, {3: "syncs"}, clock=lambda: next(ticks))
+        fpipe = FusedPipeline.from_store(calib, scale=FUSED_SCALE)
+        direct = {}
+        for k, (lp, rp) in enumerate(fused_paths):
+            out = fpipe(imread_gray(lp), imread_gray(rp), t_now=SERVE_DT * k)
+            direct[k + 1] = {key: out[key].cpu().numpy() for key in ("fused", "confidence",
+                                                                    "meters")}
+            served = next(r for r in resps if r.get("id") == k + 1)
+            check((served["fusion_mode"], served["occlusion"], served["camera_moving"])
+                  == (int(out["mode"]), out["occlusion"], bool(out["camera_moving"])),
+                  f"serve fused: request {k + 1}'s mode, occlusion or motion differs")
+        served_equal(resps, direct, "serve fused", ("fused", "confidence", "meters"))
+        del fpipe
+        ms["fused"] = [r["ms"] for r in resps if "out_npz" in r]
+        stats["fused"] = resps[-1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    for mode in ("hier", "prod"):
+        print(f"phase 15 served {mode} request: launches {launches[mode]}, each exact against "
+              f"its plain version; {probed[mode]['syncs'][0]} synchronising calls a dispatch "
+              f"{probed[mode]['syncs'][1]}")
+    print(f"phase 15 served fused request: {probed['fused']['syncs'][0]} synchronising calls a "
+          f"dispatch {probed['fused']['syncs'][1]}")
+    for mode, times in ms.items():
+        s = stats[mode]
+        print(f"phase 15 serve {mode} at {W}x{H}"
+              + (f" (D={D})" if mode != "fused" else f" (scale {FUSED_SCALE})")
+              + f": ms a request {times}; stats mean_ms {s['mean_ms']}, fps {s['fps']}, "
+              f"wall_fps {s['wall_fps']} over {s['frames']} frames; served arrays equal the "
+              f"direct pipeline's bit for bit; card {card}")
+    print(f"phase 15: peak device memory {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} GB its "
+          f"own), {time.perf_counter() - t_phase:.1f} s in all; card {card}")
     return launches
+
+
+# -- phase 16: MidasSmall's synthetic pretraining ----------------------------
+TRAIN_STEPS = 20                   # train_synthetic.main's steps at its defaults
+TRAIN_TIMED = 10                   # steps timed with events after 2 warm-up steps
+# card against CPU, one step: a leaf's gradient within TRAIN_TOL of its own
+# largest magnitude plus TRAIN_TOL_ALL of the largest over every leaf. A leaf
+# the loss barely depends on is rounding noise in float32 (the head's bias
+# under the scale-and-shift alignment: 13% from float64 on the CPU), so the
+# leaf's own scale alone cannot hold it; float32 against float64 on the CPU
+# reads 0.33 of this bound at the phase's batch.
+TRAIN_TOL, TRAIN_TOL_ALL = 2e-2, 2e-3
+
+
+def train_phase(torch, card: str):
+    """Phase 16, ``models.train_synthetic`` on the card at the reference's
+    width (size 128, batch 16, lr 3e-4): ``main`` for TRAIN_STEPS steps
+    (initial and final validation loss finite; its checkpoint read back
+    through ``mono.nn.create_model`` to the saved arrays, the network's
+    output finite); TRAIN_TIMED steps timed with events (ms/step) and
+    their losses finite; one step from the same seeded state on the card
+    and on the CPU with TF32 off: the loss within 1e-5 relative, each
+    variable's gradient within TRAIN_TOL of its largest magnitude on the
+    CPU plus TRAIN_TOL_ALL of the largest over all variables; peak device
+    memory."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from stereovision_tpu_torch import convert
+    from stereovision_tpu_torch.models import train_synthetic as ts
+    from stereovision_tpu_torch.models.checkpoint import load_variables
+    from stereovision_tpu_torch.models.synthetic_scenes import batch as make_batch
+    from stereovision_tpu_torch.mono import nn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        out = Path(tmp) / "midas_synthetic.msgpack"
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = ts.main(["--steps", str(TRAIN_STEPS), "--out", str(out)])
+        main_s = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        check(rc == 0 and lines[0].startswith("initial val loss") and "saved" in lines[-1],
+              f"train_synthetic.main: {lines}")
+        val0, val1 = float(lines[0].split()[-1]), float(lines[-1].split()[-1])
+        check(np.isfinite(val0) and np.isfinite(val1), f"validation loss {val0} -> {val1}")
+        saved, nn.PRETRAINED = nn.PRETRAINED, out
+        try:
+            model = nn.create_model(device="cuda")
+        finally:
+            nn.PRETRAINED = saved
+        want = convert.midas_small_from_flax(load_variables(out))
+        got = model.state_dict()
+        check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+              "the trained checkpoint does not read back through create_model")
+        probe = torch.as_tensor(make_batch(np.random.default_rng(1), 2, 128)[0] / 255.0,
+                                device="cuda")
+        with torch.no_grad():
+            check(bool(torch.isfinite(model(probe)).all()), "the trained network's output")
+    peak = torch.cuda.max_memory_allocated()
+    # ms/step: TRAIN_TIMED steps of batches made and uploaded ahead
+    rng = np.random.default_rng(2)
+    model = nn.create_model(pretrained=False, seed=0)
+    variables = ts.trainable_variables(model)
+    opt = ts.make_optimizer(variables, 3e-4)
+    batches = [tuple(torch.as_tensor(a, device="cuda") for a in make_batch(rng, 16, 128))
+               for _ in range(TRAIN_TIMED + 2)]
+    losses = [ts.train_step(model, variables, opt, *b) for b in batches[:2]]
+    steps = iter(batches[2:])
+    step_ms = cuda_ms(torch, lambda: losses.append(ts.train_step(model, variables, opt,
+                                                                 *next(steps))),
+                      TRAIN_TIMED, warmup=0)
+    check(all(bool(torch.isfinite(v)) for v in losses), f"training losses {losses}")
+    # one step from the same seeded state, card against CPU (TF32 off)
+    imgs, invd = make_batch(np.random.default_rng(5), 16, 128)
+    grads, loss = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = nn.create_model(pretrained=False, seed=0, device=dev)
+        v = ts.trainable_variables(m)
+        loss[dev] = float(ts.train_step(m, v, ts.make_optimizer(v, 3e-4),
+                                        torch.as_tensor(imgs, device=dev),
+                                        torch.as_tensor(invd, device=dev)))
+        grads[dev] = {k: t.grad.cpu() for k, t in v.items()}
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    scale = max(float(g.abs().max()) for g in grads["cpu"].values())
+    grad_err = max(float((grads["cuda"][k] - g).abs().max())
+                   / (TRAIN_TOL * float(g.abs().max()) + TRAIN_TOL_ALL * scale)
+                   for k, g in grads["cpu"].items())
+    check(loss_err <= 1e-5 and grad_err <= 1.0,
+          f"a training step on the card against the CPU: loss {loss_err}, gradients at "
+          f"{grad_err} of their bound")
+    print(f"phase 16 train_synthetic.main (size 128, batch 16, {TRAIN_STEPS} steps): "
+          f"{main_s:.1f} s with its validations, val loss {val0:.5f} -> {val1:.5f}; "
+          f"{step_ms:.2f} ms/step ({TRAIN_TIMED} steps, events, batches uploaded ahead), losses "
+          f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}; card against CPU (TF32 off): "
+          f"loss {loss_err:.2e} relative, gradients at {grad_err:.3f} of their bound "
+          f"({TRAIN_TOL} of a leaf's largest + {TRAIN_TOL_ALL} of all leaves' largest); the "
+          f"checkpoint reads back through create_model; peak device memory {peak / 1e9:.2f} GB "
+          f"({(peak - held) / 1e9:.2f} GB its own); {time.perf_counter() - t_phase:.1f} s in "
+          f"all; card {card}")
+    return step_ms
+
+
+# -- phase 17: a mesh across processes on one card --------------------------
+MH_TIMEOUT_S = 420                 # each child process's time limit
+MH_HALO = 23
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_child(rank: int, port: int, tmp: str) -> int:
+    """One rank of phase 17's two-process gloo group on cuda:0: ``psum``,
+    ``halo_exchange`` and ``sharded_disparity`` (``production_preset()``
+    at 720x1280 on two row tiles) across the processes, each equal bit for
+    bit to the same call on a one-process mesh of two positions of the
+    card, and ``distributed_slam_ba`` on phase 14's problem (frames across
+    the processes) within SFM_TOL of the one-process mesh's. Prints one
+    JSON line."""
+    import torch
+
+    from stereovision_tpu_torch.parallel import distributed_slam_ba, make_mesh, sharded_disparity
+    from stereovision_tpu_torch.parallel import mesh as pmesh
+    from stereovision_tpu_torch.stereo import production_preset
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pmesh.initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    out = {"rank": rank, "device": str(pmesh._PROCESS["device"])}
+    frames, tiles = make_mesh(), make_mesh(frame=1, tile=2)
+    one_f = make_mesh(devices=["cuda:0"] * 2)
+    one_t = make_mesh(frame=1, tile=2, devices=["cuda:0"] * 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    parts = [torch.randn((H, W), generator=gen, device="cuda") for _ in range(2)]
+    got = pmesh.psum({rank: parts[rank]}, frames.frame_axis())[rank]
+    check(torch.equal(got, pmesh.psum(parts)[rank]), "psum across processes")
+    slabs = [torch.randn((H // 2, W), generator=gen, device="cuda") for _ in range(2)]
+    got = pmesh.halo_exchange([s if k == rank else None for k, s in enumerate(slabs)], MH_HALO,
+                              tiles.tile_axis(0))[rank]
+    check(torch.equal(got, pmesh.halo_exchange(slabs, MH_HALO)[rank]),
+          "halo_exchange across processes")
+    left, right = two_plane_pair()
+    t0 = time.perf_counter()
+    disp, valid = sharded_disparity(left[None], right[None], production_preset(), tiles)
+    torch.cuda.synchronize()
+    out["sharded_ms"] = (time.perf_counter() - t0) * 1e3
+    disp1, valid1 = sharded_disparity(left[None], right[None], production_preset(), one_t)
+    check(torch.equal(disp, disp1) and torch.equal(valid, valid1),
+          "sharded_disparity across processes differs from the one-process mesh's")
+    t0 = time.perf_counter()
+    disp, valid = sharded_disparity(left[None], right[None], production_preset(), tiles)
+    torch.cuda.synchronize()
+    out["sharded_ms_again"] = (time.perf_counter() - t0) * 1e3
+    z = np.load(f"{tmp}/ba.npz")
+    problem = tuple(z[k] for k in ("uv", "lid", "mask", "intr", "poses", "lms"))
+    t0 = time.perf_counter()
+    ba = distributed_slam_ba(*problem, frames, iters=BA_ITERS)
+    torch.cuda.synchronize()
+    out["ba_ms"] = (time.perf_counter() - t0) * 1e3
+    ba1 = distributed_slam_ba(*problem, one_f, iters=BA_ITERS)
+    out["ba_err"] = max(rel(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(ba[:2], ba1[:2]))
+    check(out["ba_err"] <= SFM_TOL, f"distributed_slam_ba across processes: {out['ba_err']}")
+    out["checked"] = ["psum", "halo_exchange", "sharded_disparity", "distributed_slam_ba"]
+    print(json.dumps(out))
+    pmesh.shutdown_multihost()
+    return 0
+
+
+def multihost_phase(torch, card: str, ba):
+    """Phase 17, ``initialize_multihost`` and meshes across processes:
+
+    a. in this process, a one-process group over NCCL (cuda:0):
+       ``make_mesh()`` spans it; ``psum`` through NCCL's all-gather equals
+       the one-process sum; ``distributed_slam_ba`` on phase 14's problem
+       (BA_ITERS iterations) within SFM_TOL of phase 14's 1-position result,
+       timed;
+    b. two child processes in a gloo group, sharing the card
+       (:func:`multihost_child`), each under MH_TIMEOUT_S: a failure or a
+       timeout in either fails the phase."""
+    import os
+    import tempfile
+
+    from stereovision_tpu_torch.parallel import distributed_slam_ba, make_mesh
+    from stereovision_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    pmesh.initialize_multihost(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "the NCCL group")
+        mesh = make_mesh()
+        check(mesh.ranks == ((0,),) and mesh.home == pmesh._PROCESS["device"], f"mesh {mesh}")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        part = torch.randn((H, W), generator=gen, device="cuda")
+        got = pmesh.psum({0: part}, mesh.frame_axis())[0]
+        check(torch.equal(got, pmesh.psum([part])[0]), "psum through NCCL")
+        distributed_slam_ba(*ba["problem"], mesh, iters=1)   # warm-up
+        out, ba_ms = host_timed(torch, lambda: distributed_slam_ba(*ba["problem"], mesh,
+                                                                   iters=BA_ITERS))
+        ba_err = max(rel(a.cpu().numpy(), b) for a, b in zip(out[:2], ba["result"][:2]))
+        check(ba_err <= SFM_TOL, f"distributed_slam_ba through NCCL: {ba_err} from phase 14's")
+    finally:
+        pmesh.shutdown_multihost()
+    print(f"phase 17 one-process NCCL group on {mesh.home}: psum exact; distributed_slam_ba "
+          f"{ba_ms:.1f} ms for "
+          f"{BA_ITERS} iterations, {ba_err:.2e} from phase 14's 1-position result; card {card}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mh_") as tmp:
+        uv, lid, mask, intr, poses, lms = ba["problem"]
+        np.savez(f"{tmp}/ba.npz", uv=uv, lid=lid, mask=mask, intr=intr, poses=poses, lms=lms)
+        port = _free_port()
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        procs = [subprocess.Popen([sys.executable, __file__, "--multihost-rank", str(r), str(port),
+                                   tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True, env=env) for r in range(2)]
+        results = []
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    so, se = p.communicate(timeout=MH_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"chip_smoke check failed: phase 17 rank {r} ran past "
+                                       f"{MH_TIMEOUT_S} s")
+                check(p.returncode == 0, f"phase 17 rank {r} exited with {p.returncode}: "
+                                         f"{se[-3000:]}")
+                results.append(json.loads(so.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for res in results:
+        check(res["checked"] == ["psum", "halo_exchange", "sharded_disparity",
+                                 "distributed_slam_ba"], f"phase 17 rank {res['rank']}: {res}")
+    print(f"phase 17 two processes over gloo on one card ({[r['device'] for r in results]}): "
+          f"psum, halo_exchange and sharded_disparity (production, {W}x{H}, 2 row tiles) equal "
+          f"the one-process mesh's bit for bit; sharded_disparity "
+          f"{[round(r['sharded_ms'], 1) for r in results]} ms (first), "
+          f"{[round(r['sharded_ms_again'], 1) for r in results]} ms (again) on the host's "
+          f"clock; distributed_slam_ba {[round(r['ba_ms'], 1) for r in results]} ms, "
+          f"{max(r['ba_err'] for r in results):.2e} from the one-process mesh's; "
+          f"{time.perf_counter() - t_phase:.1f} s in all; card {card}")
 
 
 def rel(a, b) -> float:
@@ -2411,6 +2956,9 @@ def calib_run(torch, name, run, card):
           f"{ms / max(len(trace), 1):.2f} ms an iteration ({ms:.1f} ms), card against CPU "
           f"{err:.2e}; card {card}")
     return out
+
+
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -2706,11 +3254,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mono = mono_models_phase(torch, card, cal, planes)
     torch.cuda.empty_cache()
-    calibrated = calib_sfm_phase(torch, card)
+    calibrated, ba = calib_sfm_phase(torch, card)
+    torch.cuda.empty_cache()
+    served = serve_phase(torch, card, cal, planes)
+    torch.cuda.empty_cache()
+    train_phase(torch, card)
+    torch.cuda.empty_cache()
+    multihost_phase(torch, card, ba)
     for r in rows:  # launches in one fused frame (its #7 in the gather warp), by network
         r["fused_launches"] = fused["launches"].get(r["name"], 0)
         r["mono_fused_launches"] = {arch: n.get(r["name"], 0) for arch, n in mono.items()}
         r["calibrated_frame_launches"] = calibrated.get(r["name"], 0)
+        r["served_launches"] = {mode: n.get(r["name"], 0) for mode, n in served.items()}
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input
@@ -2718,6 +3273,8 @@ def main() -> int:
     next(r for r in rows if r["name"] == "shift_gather")["host_us_forms"] = host["shift_gather"]
     next(r for r in rows if r["name"] == "wta_stats_from_duals")["host_us_forms"] = host[
         "wta_stats_from_duals"]
+    print(f"chip_smoke wall time: {time.perf_counter() - T0:.1f} s (phases 1-17, the build "
+          f"included)")
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
@@ -2727,4 +3284,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-rank"]:   # a child of phase 17
+        sys.exit(multihost_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

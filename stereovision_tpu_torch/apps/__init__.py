@@ -8,12 +8,16 @@
     python -m stereovision_tpu_torch.apps.mono_ai …
     python -m stereovision_tpu_torch.apps.mono_motion …
     python -m stereovision_tpu_torch.apps.sfm …
+    python -m stereovision_tpu_torch.apps.serve …
 
 Each takes the reference's flags plus ``--device`` (default ``cuda``).
 Image files are read and written with ``imageio`` (and ``cv2`` for PNG
 ground truth), the colormaps come from ``matplotlib``, the fused app's
 text overlay from ``PIL``: an app whose
 packages are missing stops at start with an ``ImportError`` that names them.
+``serve`` reads its frames through ``io.frames.imread_gray`` (binary
+PGM/PPM without any of them) and asks for ``imageio`` and ``matplotlib``
+only with ``--save-png``.
 """
 
 from __future__ import annotations

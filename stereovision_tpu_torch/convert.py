@@ -124,6 +124,40 @@ def midas_small_from_flax(variables: dict) -> dict:
     return out
 
 
+def midas_small_to_flax(state_dict) -> dict:
+    """The inverse of :func:`midas_small_from_flax`: a ``state_dict`` of the
+    port's ``MidasSmall`` (tensors or arrays) → flax variables
+    ({'params', 'batch_stats'}: nested dicts of float32 numpy arrays) that
+    ``models.checkpoint.save_variables`` writes and the reference's
+    ``load_variables`` reads, through the same table. Conv weights go from
+    OIHW back to HWIO; the batch norms' ``num_batches_tracked`` counters
+    (not in flax) are dropped. A key the table does not know, or a flax
+    leaf no key fills, raises."""
+    inverse = {key: path for path, key in _midas_table().items()}
+    out: dict = {}
+    unknown = []
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        path = inverse.get(key)
+        if path is None:
+            unknown.append(key)
+            continue
+        arr = np.asarray(value.detach().cpu() if torch.is_tensor(value) else value, np.float32)
+        if path[-1] == "kernel":
+            arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW → HWIO
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    if unknown:
+        raise ValueError(f"state_dict keys with no counterpart in flax's MidasSmall: {unknown}")
+    missing = sorted("/".join(path) for key, path in inverse.items() if key not in state_dict)
+    if missing:
+        raise ValueError(f"flax leaves of MidasSmall that no state_dict key fills: {missing}")
+    return out
+
+
 # flax leaf name → the hub's (a conv's or Dense's kernel, a norm's scale,
 # batch statistics)
 _HUB_LEAF = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}

@@ -11,6 +11,12 @@ of JPEG, PNG and PNM files decode through the native threaded loader
 (``io.native_loader``) where it builds, as in the reference; other
 files, colour frames, or a machine without the loader read through
 ``imageio``. A file the native loader cannot decode raises.
+
+:func:`imread_gray` reads one frame: binary 8-bit netpbm (``P5`` PGM,
+``P6`` PPM) through its own numpy decoder (:func:`read_netpbm`), JPEG and
+PNG through the native loader where it builds, anything else through
+``imageio``; where none of them can read the file it raises an
+``ImportError`` naming what is missing.
 """
 
 from __future__ import annotations
@@ -51,9 +57,74 @@ def _imread_bgr(path: Path) -> np.ndarray:
     return _to_bgr(np.asarray(iio.imread(path)))
 
 
+_NETPBM_SUFFIXES = (".pgm", ".ppm", ".pnm")
+
+
+def _netpbm_header(data: bytes, path) -> tuple[bytes, list[int], int]:
+    """(magic, [width, height, maxval], the raster's offset) of a binary
+    netpbm file; ``#`` comments may sit between the fields."""
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while pos < len(data) and (data[pos:pos + 1].isspace() or data[pos:pos + 1] == b"#"):
+            if data[pos:pos + 1] == b"#":
+                end = data.find(b"\n", pos)
+                pos = len(data) if end < 0 else end
+            pos += 1
+        start = pos
+        while pos < len(data) and data[pos:pos + 1].isdigit():
+            pos += 1
+        if pos == start or pos >= len(data) or not data[pos:pos + 1].isspace():
+            raise ValueError(f"{path}: malformed netpbm header (field {len(fields) + 1} of "
+                             "width, height, maxval)")
+        fields.append(int(data[start:pos]))
+    return data[:2], fields, pos + 1  # one whitespace byte ends the header
+
+
+def read_netpbm(path) -> np.ndarray:
+    """A binary 8-bit netpbm file → uint8 (H, W) for ``P5`` or (H, W, 3)
+    for ``P6``: the array ``imageio`` decodes from the same file. Any other
+    magic, a maxval above 255 (16-bit samples), a zero size or a short
+    raster raises ``ValueError``."""
+    data = Path(path).read_bytes()
+    magic = data[:2]
+    if magic not in (b"P5", b"P6") or len(data) < 3 or not data[2:3].isspace():
+        raise ValueError(f"{path}: not a binary PGM/PPM (magic {magic!r}; P5 or P6 decoded)")
+    _, (w, h, maxval), start = _netpbm_header(data, path)
+    if not 0 < maxval < 256:
+        raise ValueError(f"{path}: maxval {maxval}: only 8-bit netpbm samples are decoded")
+    if w == 0 or h == 0:
+        raise ValueError(f"{path}: empty netpbm image ({w}x{h})")
+    ch = 1 if magic == b"P5" else 3
+    n = w * h * ch
+    if len(data) - start < n:
+        raise ValueError(f"{path}: netpbm raster holds {len(data) - start} bytes, not {n}")
+    img = np.frombuffer(data, np.uint8, count=n, offset=start)
+    return img.reshape((h, w) if ch == 1 else (h, w, 3)).copy()
+
+
 def imread_gray(path) -> np.ndarray:
-    """Public single-image grayscale loader (float32 (H, W))."""
-    return _imread_gray(Path(path))
+    """Public single-image grayscale loader (float32 (H, W)): binary 8-bit
+    PGM/PPM through :func:`read_netpbm`, JPEG and PNG through the native
+    loader where it builds (a file it cannot decode raises), anything else
+    through ``imageio``."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix in _NETPBM_SUFFIXES:
+        with open(path, "rb") as f:
+            if f.read(2) in (b"P5", b"P6"):
+                return _to_gray(read_netpbm(path))
+    if suffix in (".jpg", ".jpeg", ".png"):
+        from stereovision_tpu_torch.io import native_loader
+
+        if native_loader.available():
+            return native_loader.decode(path, gray=True)
+    import importlib.util
+
+    if importlib.util.find_spec("imageio") is None:
+        raise ImportError(
+            f"reading {path.name} needs imageio, which is not installed here (binary PGM/PPM "
+            "decode without it, and JPEG/PNG where the native loader builds)")
+    return _imread_gray(path)
 
 
 @dataclasses.dataclass

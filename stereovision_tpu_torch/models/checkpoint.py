@@ -1,4 +1,5 @@
-"""A reader of flax's msgpack checkpoints, in plain Python and numpy.
+"""A reader and a writer of flax's msgpack checkpoints, in plain Python
+and numpy.
 
 ``flax.serialization.to_bytes`` writes a variables tree as msgpack: maps of
 strings, and each array as extension type 1 holding a packed
@@ -7,6 +8,8 @@ format without ``msgpack`` or ``flax``: maps, arrays, strings, bin, ints,
 floats, nil, bool, ext 8/16/32 and fixext; extension 1 (ndarray), 2
 (complex) and 3 (numpy scalar) as flax does, and flax's chunked form of
 oversized arrays. Any other extension comes back as (code, bytes).
+:func:`packb` and :func:`save_variables` write the same format, as
+``msgpack.packb(..., use_bin_type=True)`` under flax's hooks encodes it.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+_MAX_CHUNK_BYTES = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
 
 
 class _Reader:
@@ -135,3 +139,130 @@ def load_variables(path) -> dict:
     if not path.is_file():
         raise FileNotFoundError(f"no flax checkpoint at {path}")
     return msgpack_restore(path.read_bytes())
+
+
+# -- writing -----------------------------------------------------------------
+
+
+def _sized(out: bytearray, n: int, small: tuple | None, wide: tuple) -> None:
+    """A msgpack header: the fix form ``small`` = (first byte, limit) where
+    n fits, else the first of ``wide``'s (byte, struct code) that holds n."""
+    if small is not None and n < small[1]:
+        out.append(small[0] | n)
+        return
+    for byte, code in wide:
+        if n < 1 << (8 * struct.calcsize(code)):
+            out.append(byte)
+            out += struct.pack(">" + code, n)
+            return
+    raise ValueError(f"msgpack cannot hold a length of {n}")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v < 0x80 or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q")) if v >= 0 else (
+        (0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q"))
+    for byte, code in forms:
+        try:
+            packed = struct.pack(">" + code, v)
+        except struct.error:
+            continue
+        out.append(byte)
+        out += packed
+        return
+    raise ValueError(f"msgpack cannot hold the integer {v}")
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(fixed[len(data)])
+    else:
+        _sized(out, len(data), None, ((0xC7, "B"), (0xC8, "H"), (0xC9, "I")))
+    out += struct.pack(">b", code)
+    out += data
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes have no flax encoding")
+    return packb((tuple(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: bytearray, obj) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif obj is True or obj is False:
+        out.append(0xC3 if obj else 0xC2)
+    elif type(obj) is int:
+        _pack_int(out, obj)
+    elif type(obj) is float:
+        out.append(0xCB)
+        out += struct.pack(">d", obj)
+    elif type(obj) is str:
+        raw = obj.encode("utf-8")
+        _sized(out, len(raw), (0xA0, 32), ((0xD9, "B"), (0xDA, "H"), (0xDB, "I")))
+        out += raw
+    elif type(obj) in (bytes, bytearray, memoryview):
+        raw = bytes(obj)
+        _sized(out, len(raw), None, ((0xC4, "B"), (0xC5, "H"), (0xC6, "I")))
+        out += raw
+    elif type(obj) in (list, tuple):
+        _sized(out, len(obj), (0x90, 16), ((0xDC, "H"), (0xDD, "I")))
+        for v in obj:
+            _pack(out, v)
+    elif type(obj) is dict:
+        _sized(out, len(obj), (0x80, 16), ((0xDE, "H"), (0xDF, "I")))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    elif type(obj) is complex:
+        _pack_ext(out, _EXT_COMPLEX, packb((obj.real, obj.imag)))
+    else:
+        raise TypeError(f"no msgpack encoding for {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Python (dicts, lists, tuples, str, bytes, int, float, None, bool,
+    numpy arrays and scalars, complex) → msgpack bytes, with flax's
+    extensions for arrays, numpy scalars and complex numbers."""
+    out = bytearray()
+    _pack(out, obj)
+    return bytes(out)
+
+
+def _chunked(tree):
+    """flax's chunked form of arrays above 1 GiB (``_chunk_array_leaves``)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, np.ndarray) and v.size * v.dtype.itemsize > _MAX_CHUNK_BYTES:
+            flat, n = v.reshape(-1), max(1, _MAX_CHUNK_BYTES // v.dtype.itemsize)
+            chunks = [flat[i:i + n] for i in range(0, flat.size, n)]
+            v = {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(v.shape)},
+                 "chunks": {str(i): c for i, c in enumerate(chunks)}}
+        out[str(k)] = _chunked(v)
+    return out
+
+
+def msgpack_serialize(tree) -> bytes:
+    """``flax.serialization.msgpack_serialize``: nested dicts of numpy
+    arrays → bytes that :func:`msgpack_restore` and flax read back."""
+    return packb(_chunked(tree))
+
+
+def save_variables(path, variables: dict) -> Path:
+    """Write a variables tree (nested dicts of numpy arrays, as
+    ``convert.midas_small_to_flax`` returns them) as flax's ``to_bytes``
+    does, creating the parent directory; returns the path."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack_serialize(variables))
+    return path

@@ -14,7 +14,7 @@ pads a strided convolution unevenly (total max((⌈n/s⌉ − 1)·s + k − n, 0
 the smaller half before), so the stride-2 convolutions pad explicitly;
 stride-1 ones pad k//2 on each side, which is the same. Batch norms run on
 their running statistics (eps 1e-5); :func:`mono.nn.create_model` puts the
-module in eval mode.
+module in eval mode, and training keeps it there (:class:`BatchNorm`).
 """
 
 from __future__ import annotations
@@ -51,8 +51,25 @@ class SameConv(nn.Conv2d):
         return super().forward(x)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running statistics may be trained. The
+    reference's training differentiates its batch statistics like weights
+    (every flax BatchNorm runs on its running average), which PyTorch's
+    batch norm does not; where the running mean or variance requires grad
+    (``models.train_synthetic``), the eval-mode normalisation is written out
+    as flax computes it: (x − mean)·(scale·rsqrt(var + eps)) + bias."""
+
+    def forward(self, x):
+        if not self.training and (self.running_mean.requires_grad
+                                  or self.running_var.requires_grad):
+            mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+            return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None])
+        return super().forward(x)
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+    return BatchNorm(c, eps=BN_EPS)
 
 
 class MBConv(nn.Module):

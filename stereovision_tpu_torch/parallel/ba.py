@@ -48,28 +48,30 @@ def distributed_mono_ba(obj_pts, img_pts, intrinsics0, poses0, mesh: Mesh, iters
     intrinsics0 (9,), poses0 (V, 6): arrays or tensors.
 
     Returns (intrinsics (9,), poses (V, 6), rms) as float64 tensors on the
-    mesh's first device. V must be divisible by the frame axis."""
+    mesh's :attr:`~.mesh.Mesh.home` device. V must be divisible by the frame
+    axis. On a mesh that spans processes each process computes only the
+    shards it owns and every process gets the whole result."""
     f64 = torch.float64
     V = img_pts.shape[0]
     N = img_pts.shape[1]
-    devs, Vl = frame_shards(mesh, V)
-    shards = range(len(devs))
+    devs, Vl, shards = frame_shards(mesh, V)
+    axis = mesh.frame_axis()
     img_h, poses_h = torch.as_tensor(img_pts).to(f64), torch.as_tensor(poses0).to(f64)
-    imgs = [upload(img_h[i * Vl:(i + 1) * Vl], d) for i, d in enumerate(devs)]
-    poses = [upload(poses_h[i * Vl:(i + 1) * Vl], d) for i, d in enumerate(devs)]
-    objs = [upload(torch.as_tensor(obj_pts).to(f64), d) for d in devs]
-    gs = [upload(torch.as_tensor(intrinsics0).to(f64).reshape(_NG), d) for d in devs]
-    eye6 = [torch.eye(6, dtype=f64, device=d) for d in devs]
-    eyeg = [torch.eye(_NG, dtype=f64, device=d) for d in devs]
-    tens = [10.0 ** torch.arange(_NL, dtype=f64, device=d) for d in devs]
+    imgs = {i: upload(img_h[i * Vl:(i + 1) * Vl], devs[i]) for i in shards}
+    poses = {i: upload(poses_h[i * Vl:(i + 1) * Vl], devs[i]) for i in shards}
+    objs = {i: upload(torch.as_tensor(obj_pts).to(f64), devs[i]) for i in shards}
+    gs = {i: upload(torch.as_tensor(intrinsics0).to(f64).reshape(_NG), devs[i]) for i in shards}
+    eye6 = {i: torch.eye(6, dtype=f64, device=devs[i]) for i in shards}
+    eyeg = {i: torch.eye(_NG, dtype=f64, device=devs[i]) for i in shards}
+    tens = {i: 10.0 ** torch.arange(_NL, dtype=f64, device=devs[i]) for i in shards}
 
     def residuals(i, g, poses_l):  # (Vl, 2N)
         return vmap(_residual_one, in_dims=(None, 0, None, 0))(g, poses_l, objs[i], imgs[i])
 
-    lam = [torch.full((), 1e-3, dtype=f64, device=d) for d in devs]
-    cost = psum([(residuals(i, gs[i], poses[i]) ** 2).sum() for i in shards])
-    for _ in range(iters):
-        parts, local = [], []
+    lam = {i: torch.full((), 1e-3, dtype=f64, device=devs[i]) for i in shards}
+    cost = psum({i: (residuals(i, gs[i], poses[i]) ** 2).sum() for i in shards}, axis)
+    for _ in range(iters if shards else 0):
+        parts, local = {}, {}
         for i in shards:
             r = residuals(i, gs[i], poses[i])
             Jg, Jp = vmap(jacfwd(_residual_one, argnums=(0, 1)), in_dims=(None, 0, None, 0))(
@@ -86,10 +88,10 @@ def distributed_mono_ba(obj_pts, img_pts, intrinsics0, poses0, mesh: Mesh, iters
             Cinv = torch.linalg.inv_ex(Cd)[0]
             BCB = torch.einsum("vij,cvjk,vlk->cil", B, Cinv, B)     # (6 λ, 9, 9)
             Bcr = torch.einsum("vij,cvjk,vk->ci", B, Cinv, gP)      # (6 λ, 9)
-            parts.append(torch.cat([A_l.reshape(-1), gA_l, BCB.reshape(-1), Bcr.reshape(-1)]))
-            local.append((B, gP, Cinv, lams))
-        packed = psum(parts)
-        cands = []
+            parts[i] = torch.cat([A_l.reshape(-1), gA_l, BCB.reshape(-1), Bcr.reshape(-1)])
+            local[i] = (B, gP, Cinv, lams)
+        packed = psum(parts, axis)
+        cands = {}
         for i in shards:
             B, gP, Cinv, lams = local[i]
             p = packed[i]
@@ -107,8 +109,8 @@ def distributed_mono_ba(obj_pts, img_pts, intrinsics0, poses0, mesh: Mesh, iters
             dp = torch.einsum("cvij,cvj->cvi", Cinv, rhs)                   # (6 λ, Vl, 6)
             g_c, p_c = gs[i] - dg, poses[i] - dp
             cost_l = torch.stack([(residuals(i, g_c[c], p_c[c]) ** 2).sum() for c in range(_NL)])
-            cands.append((g_c, p_c, cost_l))
-        costs = psum([c[2] for c in cands])
+            cands[i] = (g_c, p_c, cost_l)
+        costs = psum({i: c[2] for i, c in cands.items()}, axis)
         for i in shards:
             g_c, p_c, _ = cands[i]
             ok = (costs[i] < cost[i]) & torch.isfinite(costs[i])
@@ -119,9 +121,12 @@ def distributed_mono_ba(obj_pts, img_pts, intrinsics0, poses0, mesh: Mesh, iters
             cost[i] = torch.where(any_ok, costs[i].index_select(0, k)[0], cost[i])
             lam[i] = torch.where(any_ok, (local[i][3].index_select(0, k)[0] * 0.3).clamp(min=1e-10),
                                  lam[i] * 10.0 ** _NL)
-    first = devs[0]
-    rms = torch.sqrt(cost[0] / (V * N))
-    return gs[0], torch.cat([p.to(first) for p in poses]), rms
+    nf = len(devs)
+    rms = {i: torch.sqrt(cost[i] / (V * N)) for i in shards}
+    poses_all = mesh.share({(i, 0): poses.get(i) for i in range(nf)}, (Vl, 6), f64)
+    g0 = mesh.share({(0, 0): gs.get(0)}, (_NG,), f64)[(0, 0)]
+    rms0 = mesh.share({(0, 0): rms.get(0)}, (), f64)[(0, 0)]
+    return g0, torch.cat([poses_all[(i, 0)] for i in range(nf)]), rms0
 
 
 def mono_ba_init(obj_pts, img_pts, image_size):

@@ -54,13 +54,14 @@ def _frame_residual(intr, pose, landmarks, uv, lid, mask):
 
 
 def frame_shards(mesh: Mesh, F: int):
-    """The frame axis' devices and the frames each shard holds (contiguous,
-    F / n a position, as ``P("frame")`` lays them)."""
+    """The frame axis' devices, the frames each shard holds (contiguous,
+    F / n a position, as ``P("frame")`` lays them) and the shards this
+    process owns (all of them on a one-process mesh)."""
     devs = [row[0] for row in mesh.devices]
     n = len(devs)
     if F % n:
         raise ValueError(f"{F} frames do not split over a frame axis of {n}")
-    return devs, F // n
+    return devs, F // n, [i for i in range(n) if mesh.owns(i)]
 
 
 def distributed_slam_ba(obs_uv, obs_lid, obs_mask, intr, poses0, landmarks0, mesh: Mesh,
@@ -69,32 +70,34 @@ def distributed_slam_ba(obs_uv, obs_lid, obs_mask, intr, poses0, landmarks0, mes
     fx fy cx cy, poses0 (F, 6), landmarks0 (L, 3): arrays or tensors.
 
     Returns (poses (F, 6), landmarks (L, 3), rms) as float64 tensors on the
-    mesh's first device. F must be divisible by the frame axis."""
+    mesh's :attr:`~.mesh.Mesh.home` device. F must be divisible by the frame
+    axis. On a mesh that spans processes each process computes only the
+    shards it owns and every process gets the whole result."""
     f64 = torch.float64
     F = obs_uv.shape[0]
-    devs, Fl = frame_shards(mesh, F)
+    devs, Fl, shards = frame_shards(mesh, F)
+    axis = mesh.frame_axis()
 
     def shard(x, dtype):  # pinned, asynchronous copies: no host wait
         x = torch.as_tensor(x).to(dtype)
-        return [upload(x[i * Fl:(i + 1) * Fl], d) for i, d in enumerate(devs)]
+        return {i: upload(x[i * Fl:(i + 1) * Fl], devs[i]) for i in shards}
 
     uvs, lids, masks = shard(obs_uv, f64), shard(obs_lid, torch.int64), shard(obs_mask, torch.bool)
     poses = shard(poses0, f64)
-    lm = [upload(torch.as_tensor(landmarks0).to(f64), d) for d in devs]
-    intrs = [upload(torch.as_tensor(intr).to(f64), d) for d in devs]
-    L = lm[0].shape[0]
+    lm = {i: upload(torch.as_tensor(landmarks0).to(f64), devs[i]) for i in shards}
+    intrs = {i: upload(torch.as_tensor(intr).to(f64), devs[i]) for i in shards}
+    L = landmarks0.shape[0]
     # gauge: pose 0 of frame group 0 frozen
-    frozen = [((torch.arange(Fl, device=d) == 0) & (i == 0))[:, None] for i, d in enumerate(devs)]
-    eye3 = [torch.eye(3, dtype=f64, device=d) for d in devs]
-    eye6 = [torch.eye(6, dtype=f64, device=d) for d in devs]
-    shards = range(len(devs))
+    frozen = {i: ((torch.arange(Fl, device=devs[i]) == 0) & (i == 0))[:, None] for i in shards}
+    eye3 = {i: torch.eye(3, dtype=f64, device=devs[i]) for i in shards}
+    eye6 = {i: torch.eye(6, dtype=f64, device=devs[i]) for i in shards}
 
     def residual_all(i, poses_l, lmk):
         return vmap(_frame_residual, in_dims=(None, 0, None, 0, 0, 0))(
             intrs[i], poses_l, lmk, uvs[i], lids[i], masks[i])         # (Fl, M, 2)
 
     def cost_of(poses_s, lms):
-        return psum([(residual_all(i, poses_s[i], lms[i]) ** 2).sum() for i in shards])
+        return psum({i: (residual_all(i, poses_s[i], lms[i]) ** 2).sum() for i in shards}, axis)
 
     def blocks(i, poses_l, lmk):
         intr_i = intrs[i]
@@ -114,31 +117,32 @@ def distributed_slam_ba(obs_uv, obs_lid, obs_mask, intr, poses0, landmarks0, mes
         out = torch.zeros((L, width), dtype=f64, device=devs[i])
         return out.index_add_(0, lids[i].reshape(-1), vals.reshape(-1, width))
 
-    lam_c = [torch.full((), lam, dtype=f64, device=d) for d in devs]
+    lam_c = {i: torch.full((), lam, dtype=f64, device=devs[i]) for i in shards}
     cost_c = cost_of(poses, lm)
-    for _ in range(iters):
-        r, Jp, Jl = zip(*(blocks(i, poses[i], lm[i]) for i in shards))
-        U = [torch.einsum("fmri,fmrj->fij", Jp[i], Jp[i]) for i in shards]
-        b_p = [torch.einsum("fmri,fmr->fi", Jp[i], r[i]) for i in shards]
+    for _ in range(iters if shards else 0):
+        blk = {i: blocks(i, poses[i], lm[i]) for i in shards}
+        r, Jp, Jl = ({i: b[j] for i, b in blk.items()} for j in range(3))
+        U = {i: torch.einsum("fmri,fmrj->fij", Jp[i], Jp[i]) for i in shards}
+        b_p = {i: torch.einsum("fmri,fmr->fi", Jp[i], r[i]) for i in shards}
         # one reduction of the landmark blocks (V | b_l)
-        Vb = psum([torch.cat([scatter(i, torch.einsum("fmri,fmrj->fmij", Jl[i], Jl[i]), 9),
-                              scatter(i, torch.einsum("fmri,fmr->fmi", Jl[i], r[i]), 3)], dim=1)
-                   for i in shards])
-        V = [v[:, :9].reshape(L, 3, 3) for v in Vb]
-        b_l = [v[:, 9:] for v in Vb]
-        W = [torch.einsum("fmri,fmrj->fmij", Jp[i], Jl[i]) for i in shards]   # (Fl, M, 6, 3)
+        Vb = psum({i: torch.cat([scatter(i, torch.einsum("fmri,fmrj->fmij", Jl[i], Jl[i]), 9),
+                                 scatter(i, torch.einsum("fmri,fmr->fmi", Jl[i], r[i]), 3)], dim=1)
+                   for i in shards}, axis)
+        V = {i: v[:, :9].reshape(L, 3, 3) for i, v in Vb.items()}
+        b_l = {i: v[:, 9:] for i, v in Vb.items()}
+        W = {i: torch.einsum("fmri,fmrj->fmij", Jp[i], Jl[i]) for i in shards}   # (Fl, M, 6, 3)
 
         def damped(M, lam_i, eye, eps):
             diag = torch.diagonal(M, dim1=-2, dim2=-1).clamp(min=1e-8)
             return M + (lam_i * diag)[..., None] * eye + eps * eye
 
-        Ud = [damped(U[i], lam_c[i], eye6[i], 1e-9) for i in shards]
-        Vinv = [torch.linalg.inv_ex(damped(V[i], lam_c[i], eye3[i], 1e-9))[0] for i in shards]
-        Minv = [torch.linalg.inv_ex(Ud[i])[0] for i in shards]  # the Jacobi preconditioner
+        Ud = {i: damped(U[i], lam_c[i], eye6[i], 1e-9) for i in shards}
+        Vinv = {i: torch.linalg.inv_ex(damped(V[i], lam_c[i], eye3[i], 1e-9))[0] for i in shards}
+        Minv = {i: torch.linalg.inv_ex(Ud[i])[0] for i in shards}  # the Jacobi preconditioner
 
         def wt_x(xs):  # Wᵀ x, reduced over frames → (L, 3) at each position
-            return psum([scatter(i, torch.einsum("fmij,fi->fmj", W[i], xs[i]), 3)
-                         for i in shards])
+            return psum({i: scatter(i, torch.einsum("fmij,fi->fmj", W[i], xs[i]), 3)
+                         for i in shards}, axis)
 
         def w_z(i, z):  # W z (z per landmark) → (Fl, 6)
             return torch.einsum("fmij,fmj->fi", W[i], z[lids[i]])
@@ -148,47 +152,51 @@ def distributed_slam_ba(obs_uv, obs_lid, obs_mask, intr, poses0, landmarks0, mes
 
         def matvec(xs):
             t = wt_x(xs)
-            return [gauge(i, torch.einsum("fij,fj->fi", Ud[i], xs[i])
-                          - w_z(i, torch.einsum("lij,lj->li", Vinv[i], t[i])))
-                    for i in shards]
+            return {i: gauge(i, torch.einsum("fij,fj->fi", Ud[i], xs[i])
+                             - w_z(i, torch.einsum("lij,lj->li", Vinv[i], t[i])))
+                    for i in shards}
 
         def precond(vs):
-            return [torch.einsum("fij,fj->fi", Minv[i], vs[i]) for i in shards]
+            return {i: torch.einsum("fij,fj->fi", Minv[i], vs[i]) for i in shards}
 
         def dot(a, b):
-            return psum([(a[i] * b[i]).sum() for i in shards])
+            return psum({i: (a[i] * b[i]).sum() for i in shards}, axis)
 
         def guard(v):
             return torch.where(v.abs() < 1e-20, 1e-20, v)
 
-        rhs = [gauge(i, b_p[i] - w_z(i, torch.einsum("lij,lj->li", Vinv[i], b_l[i])))
-               for i in shards]
-        x = [torch.zeros_like(v) for v in rhs]
+        rhs = {i: gauge(i, b_p[i] - w_z(i, torch.einsum("lij,lj->li", Vinv[i], b_l[i])))
+               for i in shards}
+        x = {i: torch.zeros_like(v) for i, v in rhs.items()}
         res = rhs
         p_dir = precond(rhs)
         rz = dot(rhs, p_dir)
         for _ in range(cg_iters):
             Ap = matvec(p_dir)
-            alpha = [rz[i] / guard(d) for i, d in enumerate(dot(p_dir, Ap))]
-            x = [x[i] + alpha[i] * p_dir[i] for i in shards]
-            res = [res[i] - alpha[i] * Ap[i] for i in shards]
+            d = dot(p_dir, Ap)
+            alpha = {i: rz[i] / guard(d[i]) for i in shards}
+            x = {i: x[i] + alpha[i] * p_dir[i] for i in shards}
+            res = {i: res[i] - alpha[i] * Ap[i] for i in shards}
             z = precond(res)
             rz_new = dot(res, z)
-            p_dir = [z[i] + rz_new[i] / guard(rz[i]) * p_dir[i] for i in shards]
+            p_dir = {i: z[i] + rz_new[i] / guard(rz[i]) * p_dir[i] for i in shards}
             rz = rz_new
         # back-substitute the landmarks
         wx = wt_x(x)
-        dl = [torch.einsum("lij,lj->li", Vinv[i], b_l[i] - wx[i]) for i in shards]
-        poses_n = [poses[i] - x[i] for i in shards]
-        lm_n = [lm[i] - dl[i] for i in shards]
+        dl = {i: torch.einsum("lij,lj->li", Vinv[i], b_l[i] - wx[i]) for i in shards}
+        poses_n = {i: poses[i] - x[i] for i in shards}
+        lm_n = {i: lm[i] - dl[i] for i in shards}
         cost_n = cost_of(poses_n, lm_n)
-        ok = [(cost_n[i] < cost_c[i]) & torch.isfinite(cost_n[i]) for i in shards]
-        poses = [torch.where(ok[i], poses_n[i], poses[i]) for i in shards]
-        lm = [torch.where(ok[i], lm_n[i], lm[i]) for i in shards]
-        cost_c = [torch.where(ok[i], cost_n[i], cost_c[i]) for i in shards]
-        lam_c = [torch.where(ok[i], (lam_c[i] * 0.5).clamp(min=1e-9), lam_c[i] * 4.0)
-                 for i in shards]
-    n_obs = psum([m.sum() for m in masks])[0]
-    first = devs[0]
-    rms = torch.sqrt(cost_c[0] / n_obs.clamp(min=1))
-    return torch.cat([p.to(first) for p in poses]), lm[0], rms
+        ok = {i: (cost_n[i] < cost_c[i]) & torch.isfinite(cost_n[i]) for i in shards}
+        poses = {i: torch.where(ok[i], poses_n[i], poses[i]) for i in shards}
+        lm = {i: torch.where(ok[i], lm_n[i], lm[i]) for i in shards}
+        cost_c = {i: torch.where(ok[i], cost_n[i], cost_c[i]) for i in shards}
+        lam_c = {i: torch.where(ok[i], (lam_c[i] * 0.5).clamp(min=1e-9), lam_c[i] * 4.0)
+                 for i in shards}
+    n_obs = psum({i: m.sum() for i, m in masks.items()}, axis)
+    rms = {i: torch.sqrt(cost_c[i] / n_obs[i].clamp(min=1)) for i in shards}
+    nf = len(devs)
+    poses_all = mesh.share({(i, 0): poses.get(i) for i in range(nf)}, (Fl, 6), f64)
+    first = mesh.share({(0, 0): lm.get(0)}, (L, 3), f64)[(0, 0)]
+    rms0 = mesh.share({(0, 0): rms.get(0)}, (), f64)[(0, 0)]
+    return torch.cat([poses_all[(i, 0)] for i in range(nf)]), first, rms0

@@ -60,6 +60,14 @@ def _exact_halo(p: sgm.SGMParams) -> int:
                _speckle_radius(p), 8)
 
 
+def _one_process(mesh: Mesh) -> None:
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            "the exact tile-parallel engine runs on a one-process mesh; its vertical chains "
+            "across processes are ROADMAP.md queue 1 item 12 (the exact engine across "
+            "processes)")
+
+
 def _exact_params(params: sgm.SGMParams) -> sgm.SGMParams:
     p = sgm.check_params(params)
     if p.mode != "full" or p.pack != 1 or p.paths != 4 or p.fill_invalid:
@@ -176,6 +184,7 @@ def sharded_disparity_exact(left, right, params: sgm.SGMParams, mesh: Mesh):
     disparity exactly, as (disp, valid), each (B, H, W) on the mesh's first
     device: row-tiled over the mesh's tile axis, frames over its frame
     axis. ``ntiles`` chain sweeps per frame."""
+    _one_process(mesh)
     p = _exact_params(params)
     halo = _exact_halo(p)
     impl = sgm._resolve_impl(p.impl)
@@ -236,6 +245,7 @@ def sharded_disparity_exact_pipelined(left, right, params: sgm.SGMParams, mesh: 
     software-pipelined over each frame group's batch (see the module
     docstring). The group's cost volumes are all made before the chain (as
     the reference does: (B/frame)·T slabs of int8 on the kernel path)."""
+    _one_process(mesh)
     p = _exact_params(params)
     halo = _exact_halo(p)
     impl = sgm._resolve_impl(p.impl)

@@ -188,11 +188,6 @@ def test_make_mesh_without_a_card_raises():
         parallel.make_mesh(devices=["cuda:0"] * 4)
 
 
-def test_initialize_multihost_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9, serving and multi-host"):
-        pmesh.initialize_multihost()
-
-
 @pytest.mark.parametrize("tiles,halo", [(4, 8), (3, 2), (1, 5)])
 def test_halo_exchange_is_the_replicate_padded_image(tiles, halo):
     img = torch.from_numpy(np.random.default_rng(2).uniform(size=(tiles * 10, 7))).float()

@@ -255,6 +255,10 @@ def test_port_imports_no_jax():
     assert {f"stereovision_tpu_torch/{name}.py" for name in (
         "calib/__init__", "calib/board", "calib/ba", "calib/verify", "mono/features",
         "parallel/ba", "parallel/ba_landmarks", "apps/calibrate", "apps/sfm")} <= scanned
+    # serving, training and the mesh across processes
+    assert {f"stereovision_tpu_torch/{name}.py" for name in (
+        "apps/serve", "models/synthetic_scenes", "models/train_synthetic", "parallel/mesh",
+        "parallel/disparity", "convert")} <= scanned
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in _FORBIDDEN]
     assert not bad, bad
