@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's DepthPipeline, its tile-parallel engines, its
 measurement scripts, FusedPipeline, the mono-depth networks, calibration
-and SfM, the serving daemon, MidasSmall's training and meshes across
-processes on one CUDA card and check them.
+and SfM, the serving daemon, MidasSmall's training, meshes across
+processes and the quality evaluations on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -148,16 +148,26 @@ each of which raises (exit code non-zero, no result line) on failure:
 17. (:func:`multihost_phase`) a one-process NCCL group (``psum``, the
    landmark BA of phase 14), then two child processes in a gloo group
    sharing the card (``psum``, ``halo_exchange``, ``sharded_disparity``
-   at 720p on two row tiles, the landmark BA), each against the
-   one-process mesh; a child that fails or runs past its time limit
-   fails the phase.
+   at 720p on two row tiles, the exact engine's sweep and pipelined
+   strategies at 720p, D=320 on two row tiles, counted and timed, the
+   landmark BA), each against the one-process mesh; a child that fails or
+   runs past its time limit fails the phase;
+18. (:func:`quality_phase`) the quality evaluations of
+   ``stereovision_tpu_torch.scripts`` at 720p, D=320: ``eval_quality``'s
+   four scenes in modes ``prod`` and ``full`` (the boxes frames recorded,
+   replayed, counted and held against their plain-kernel twins; every
+   score within QUALITY_TOL of the JAX reference's CPU scores; ms a
+   scene), ``eval_speckle``'s rows at ``hier2`` against the twin's, and
+   ``eval_mono``'s rows on the card against the CPU.
 
 Every row of the kernels line has ``device_ms`` (the device alone) beside
 ``ms`` (host included), ``design`` (the kernel's design: see ``DESIGNS``)
 and ``host_us`` (one wrapper call, :func:`wrapper_host_us`).
 
 Each row also has ``served_launches``: its launches in one served request
-of each depth mode (phase 15, ``hier`` and ``prod``).
+of each depth mode (phase 15, ``hier`` and ``prod``), and
+``quality_boxes_launches``: its launches in phase 18's boxes frame of
+each mode (``prod``, ``full``).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card; before that, one ``{"kernels": [...]}`` line,
@@ -2782,6 +2792,9 @@ def train_phase(torch, card: str):
 # -- phase 17: a mesh across processes on one card --------------------------
 MH_TIMEOUT_S = 420                 # each child process's time limit
 MH_HALO = 23
+MH_EXACT_FRAMES = 2                # frames of each exact strategy across the processes
+MH_CHECKS = ["psum", "halo_exchange", "sharded_disparity", "sharded_disparity_exact",
+             "sharded_disparity_exact_pipelined", "distributed_slam_ba"]
 
 
 def _free_port() -> int:
@@ -2794,17 +2807,23 @@ def _free_port() -> int:
 
 def multihost_child(rank: int, port: int, tmp: str) -> int:
     """One rank of phase 17's two-process gloo group on cuda:0: ``psum``,
-    ``halo_exchange`` and ``sharded_disparity`` (``production_preset()``
-    at 720x1280 on two row tiles) across the processes, each equal bit for
-    bit to the same call on a one-process mesh of two positions of the
-    card, and ``distributed_slam_ba`` on phase 14's problem (frames across
-    the processes) within SFM_TOL of the one-process mesh's. Prints one
-    JSON line."""
+    ``halo_exchange``, ``sharded_disparity`` (``production_preset()`` at
+    720x1280 on two row tiles) and the exact engine's two strategies
+    (``SGMParams(num_disparities=320)`` on MH_EXACT_FRAMES frames, two row
+    tiles; counted: this process's tile launches the chain T times a frame,
+    or B + T - 1 times a run, and ``sum_wta`` once a frame) across the
+    processes, each equal bit for bit to the same call on a one-process
+    mesh of two positions of the card, and ``distributed_slam_ba`` on phase
+    14's problem (frames across the processes) within SFM_TOL of the
+    one-process mesh's. Prints one JSON line."""
     import torch
 
-    from stereovision_tpu_torch.parallel import distributed_slam_ba, make_mesh, sharded_disparity
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.parallel import (distributed_slam_ba, make_mesh,
+                                                 sharded_disparity, sharded_disparity_exact,
+                                                 sharded_disparity_exact_pipelined)
     from stereovision_tpu_torch.parallel import mesh as pmesh
-    from stereovision_tpu_torch.stereo import production_preset
+    from stereovision_tpu_torch.stereo import SGMParams, production_preset
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2834,6 +2853,25 @@ def multihost_child(rank: int, port: int, tmp: str) -> int:
     disp, valid = sharded_disparity(left[None], right[None], production_preset(), tiles)
     torch.cuda.synchronize()
     out["sharded_ms_again"] = (time.perf_counter() - t0) * 1e3
+    pairs = [flat_pair(SEED + 20 + i) for i in range(MH_EXACT_FRAMES)]
+    lefts, rights = np.stack([a for a, _ in pairs]), np.stack([b for _, b in pairs])
+    p = SGMParams(num_disparities=D)
+    for fn, chain in ((sharded_disparity_exact, 2 * MH_EXACT_FRAMES),
+                      (sharded_disparity_exact_pipelined, MH_EXACT_FRAMES + 1)):
+        name = fn.__name__
+        sgm_cuda.reset_launch_counts()
+        got, ms = host_timed(torch, lambda: fn(lefts, rights, p, tiles))
+        counts = sgm_cuda.launch_counts()
+        check(counts["aggregate_dual_chain"] == chain and counts["sum_wta"] == MH_EXACT_FRAMES,
+              f"{name} across processes, rank {rank}: launches {counts}")
+        out[f"{name}_ms_first"] = ms / MH_EXACT_FRAMES
+        _, ms = host_timed(torch, lambda: fn(lefts, rights, p, tiles))
+        out[f"{name}_ms"] = ms / MH_EXACT_FRAMES
+        want = fn(lefts, rights, p, one_t)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)) and got[0].shape == (
+            MH_EXACT_FRAMES, H, W), f"{name} across processes differs from the one-process mesh's")
+        del got, want
+    torch.cuda.empty_cache()
     z = np.load(f"{tmp}/ba.npz")
     problem = tuple(z[k] for k in ("uv", "lid", "mask", "intr", "poses", "lms"))
     t0 = time.perf_counter()
@@ -2843,7 +2881,7 @@ def multihost_child(rank: int, port: int, tmp: str) -> int:
     ba1 = distributed_slam_ba(*problem, one_f, iters=BA_ITERS)
     out["ba_err"] = max(rel(a.cpu().numpy(), b.cpu().numpy()) for a, b in zip(ba[:2], ba1[:2]))
     check(out["ba_err"] <= SFM_TOL, f"distributed_slam_ba across processes: {out['ba_err']}")
-    out["checked"] = ["psum", "halo_exchange", "sharded_disparity", "distributed_slam_ba"]
+    out["checked"] = MH_CHECKS
     print(json.dumps(out))
     pmesh.shutdown_multihost()
     return 0
@@ -2914,16 +2952,151 @@ def multihost_phase(torch, card: str, ba):
                     p.kill()
                     p.wait()
     for res in results:
-        check(res["checked"] == ["psum", "halo_exchange", "sharded_disparity",
-                                 "distributed_slam_ba"], f"phase 17 rank {res['rank']}: {res}")
+        check(res["checked"] == MH_CHECKS, f"phase 17 rank {res['rank']}: {res}")
     print(f"phase 17 two processes over gloo on one card ({[r['device'] for r in results]}): "
           f"psum, halo_exchange and sharded_disparity (production, {W}x{H}, 2 row tiles) equal "
           f"the one-process mesh's bit for bit; sharded_disparity "
           f"{[round(r['sharded_ms'], 1) for r in results]} ms (first), "
           f"{[round(r['sharded_ms_again'], 1) for r in results]} ms (again) on the host's "
-          f"clock; distributed_slam_ba {[round(r['ba_ms'], 1) for r in results]} ms, "
+          f"clock; the exact engine ({MH_EXACT_FRAMES} frames, D={D}, 2 row tiles, bit for bit) "
+          + "; ".join(f"{k[:-3]} {[round(r[k], 1) for r in results]} ms a frame warm, "
+                      f"{[round(r[k + '_first'], 1) for r in results]} first"
+                      for k in ("sharded_disparity_exact_ms",
+                                "sharded_disparity_exact_pipelined_ms"))
+          + f"; distributed_slam_ba {[round(r['ba_ms'], 1) for r in results]} ms, "
           f"{max(r['ba_err'] for r in results):.2e} from the one-process mesh's; "
           f"{time.perf_counter() - t_phase:.1f} s in all; card {card}")
+
+
+# -- phase 18: the quality evaluations ---------------------------------------
+# the JAX reference's scores on the same scenes (seed 42, 1280x720, D=320):
+# ``JAX_PLATFORMS=cpu python scripts/eval_quality.py --modes prod`` and
+# ``--modes full`` on an x86 CPU (JAX 0.9.0, float32; cv2 5.0.0), as printed
+# (rounded to 1e-4): scene → mode → (bad2, epe, d1_all)
+QUALITY_REF = {
+    "boxes": {"prod": (0.0053, 0.4331, 0.0052), "full": (0.0020, 0.0139, 0.0020),
+              "cv2": (0.0052, 0.3169, 0.0052)},
+    "slant": {"prod": (0.0001, 0.1301, 0.0001), "full": (0.0065, 0.0630, 0.0065),
+              "cv2": (0.2440, 0.0788, 0.2440)},
+    "steps": {"prod": (0.0012, 0.0721, 0.0011), "full": (0.0020, 0.0120, 0.0020),
+              "cv2": (0.0045, 0.1132, 0.0045)},
+    "gain": {"prod": (0.0058, 0.4854, 0.0057), "full": (0.0026, 0.0179, 0.0026),
+             "cv2": (0.0096, 0.4650, 0.0096)},
+}
+# the port's scores against those: the scenes differ by the blur's float32
+# rounding only (eval_quality.gaussian_blur_5 for cv2.GaussianBlur), so the
+# engines see the same pairs up to that; bad2 and d1_all are fractions
+# (0.05 percentage points), epe in px
+QUALITY_TOL = {"bad2": 5e-4, "epe": 0.01, "d1_all": 5e-4}
+QUALITY_MODES = {"prod": tuple(KERNELS),
+                 "full": ("census_words", "cost_volume", "aggregate_dual", "right_disparity",
+                          "shift_gather", "speckle_counts", "sum_wta")}
+MONO_N = 4                         # eval_mono's held-out scenes
+MONO_REL = 1e-4                    # ssi_rmse_rel, card against the CPU, TF32 off
+
+
+def quality_phase(torch, card: str):
+    """Phase 18, the quality evaluations of ``stereovision_tpu_torch.scripts``
+    at 1280x720, D=320, uncut:
+
+    a. ``eval_quality``'s four scenes (seed 42) in modes ``prod`` and
+       ``full``: on ``boxes`` each mode's frame is recorded (every launch
+       exact against its plain version), counted (every kernel of the mode
+       launched) and held against its plain-kernel twin (``impl="xla"``:
+       valid exact, disparity within 1e-4 px); every scene's bad2, EPE and
+       D1 within QUALITY_TOL of the JAX reference's (QUALITY_REF); the cv2
+       recipe where cv2 imports; ms a scene and mode (events, host
+       included);
+    b. ``eval_speckle``'s rows at ``hier2``: the pixels each filter removed
+       equal the plain-kernel twin's;
+    c. ``eval_mono``'s rows with the bundled MidasSmall (MONO_N scenes):
+       ``ssi_rmse_rel`` on the card within MONO_REL of the CPU's.
+
+    Returns each mode's launches on the boxes frame."""
+    from stereovision_tpu_torch.mono.nn import create_model
+    from stereovision_tpu_torch.ops import sgm_cuda
+    from stereovision_tpu_torch.scripts import eval_mono, eval_quality, eval_speckle
+    from stereovision_tpu_torch.stereo import compute_disparity, reference_preset
+    from stereovision_tpu_torch.stereo.eval import evaluate_disparity
+
+    t_phase = time.perf_counter()
+    targets = [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]
+    launches, rows = {}, []
+    for scene, render in eval_quality.SCENES.items():
+        left, right, gt, gt_valid = render(np.random.default_rng(42), H, W, D)
+        for mode, must in QUALITY_MODES.items():
+            if scene == "boxes":
+                with Recorder(torch, targets) as rec:
+                    sgm_cuda.reset_launch_counts()
+                    disp, valid, _ = eval_quality.run_ours(left, right, mode)
+                    launches[mode] = sgm_cuda.launch_counts()
+                parity(torch, sgm_cuda, rec.calls, f"quality {scene} {mode}")
+                del rec
+                for k in must:
+                    check(launches[mode][k] > 0, f"quality {mode}: kernel {k} was not launched")
+                d_x, v_x = (t.cpu().numpy() for t in compute_disparity(
+                    left, right, dataclasses.replace(eval_quality.params_for(mode), impl="xla")))
+                d_err = float(np.abs(disp - d_x).max())
+                check(np.array_equal(valid, v_x) and d_err <= 1e-4,
+                      f"quality {scene} {mode}: the plain-kernel twin differs ({d_err} px)")
+                print(f"quality {scene} {mode}: launches {launches[mode]}; equal to its "
+                      f"plain-kernel twin (valid exact, disparity {d_err} px)")
+            else:
+                disp, valid, _ = eval_quality.run_ours(left, right, mode)
+            ms = cuda_ms(torch, lambda: eval_quality.run_ours(left, right, mode), 3)
+            m = evaluate_disparity(disp, gt, valid=valid, gt_valid=gt_valid)
+            want = dict(zip(("bad2", "epe", "d1_all"), QUALITY_REF[scene][mode]))
+            off = {k: abs(m[k] - want[k]) for k in QUALITY_TOL}
+            check(all(off[k] <= QUALITY_TOL[k] for k in off),
+                  f"quality {scene} {mode}: {m} against the reference's {want}")
+            rows.append({"scene": scene, "engine": f"ours_{mode}", "ms": ms, **m})
+            print(f"quality {scene} {mode}: bad2 {m['bad2']:.6f}, epe {m['epe']:.6f}, d1_all "
+                  f"{m['d1_all']:.6f}, coverage {m['coverage']:.6f} (the reference's on the CPU "
+                  f"{want}; off by {off}); {ms:.3f} ms a scene (events, host included), card "
+                  f"{card}")
+        ref = eval_quality.run_reference(left, right, D)
+        if ref is None:
+            print("quality " + json.dumps({"scene": scene, "engine": "cv2_sgbm_3way",
+                                           "skipped": "cv2 is not installed"}))
+        else:
+            m = evaluate_disparity(ref[0], gt, valid=ref[1], gt_valid=gt_valid)
+            print(f"quality {scene} cv2_sgbm_3way on this host: bad2 {m['bad2']:.6f}, epe "
+                  f"{m['epe']:.6f}, d1_all {m['d1_all']:.6f}, {ref[2] * 1e3:.1f} ms")
+    print("quality rows " + json.dumps([{k: (round(v, 6) if isinstance(v, float) else v)
+                                         for k, v in r.items()} for r in rows]))
+
+    p_win = reference_preset(mode="hier2")
+    for scene, render in eval_quality.SCENES.items():
+        args = render(np.random.default_rng(42), H, W, D)
+        t0 = time.perf_counter()
+        row = eval_speckle.speckle_row(scene, *args, p_win)
+        s_ms = (time.perf_counter() - t0) * 1e3
+        twin = eval_speckle.speckle_row(scene, *args, dataclasses.replace(p_win, impl="xla"))
+        for k in ("exact_removed", "windowed_removed"):
+            check(row[k] == twin[k], f"eval_speckle {scene}: {k} {row[k]}, the plain-kernel "
+                                     f"twin's {twin[k]}")
+        print(f"eval_speckle {json.dumps(row)}; removed pixels equal the plain-kernel twin's; "
+              f"{s_ms:.1f} ms (both engines and the native fill, host clock)")
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = create_model("small", device=dev)
+        t0 = time.perf_counter()
+        got[dev] = eval_mono.mono_rows(model, "small", MONO_N, device=dev, digits=None)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            m_ms = (time.perf_counter() - t0) * 1e3
+    for g, c in zip(got["cuda"], got["cpu"]):
+        err = abs(g["ssi_rmse_rel"] - c["ssi_rmse_rel"]) / abs(c["ssi_rmse_rel"])
+        check(err <= MONO_REL, f"eval_mono {g['dataset']}: card {g}, CPU {c}")
+        print(f"eval_mono {g['dataset']}: ssi_rmse_rel {g['ssi_rmse_rel']:.6f}, delta_1.25 "
+              f"{g['delta_1.25']:.6f} (CPU {c['ssi_rmse_rel']:.6f}, {c['delta_1.25']:.6f}; "
+              f"{err:.2e} relative)")
+    print(f"phase 18 quality: four scenes x (prod, full) within the reference's scores, the "
+          f"boxes frames exact against their plain versions and twins; eval_speckle and "
+          f"eval_mono rows checked (eval_mono {m_ms:.1f} ms on the card for {MONO_N} + 2 "
+          f"scenes); {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return launches
 
 
 def rel(a, b) -> float:
@@ -3261,11 +3434,14 @@ def main() -> int:
     train_phase(torch, card)
     torch.cuda.empty_cache()
     multihost_phase(torch, card, ba)
+    torch.cuda.empty_cache()
+    quality = quality_phase(torch, card)
     for r in rows:  # launches in one fused frame (its #7 in the gather warp), by network
         r["fused_launches"] = fused["launches"].get(r["name"], 0)
         r["mono_fused_launches"] = {arch: n.get(r["name"], 0) for arch, n in mono.items()}
         r["calibrated_frame_launches"] = calibrated.get(r["name"], 0)
         r["served_launches"] = {mode: n.get(r["name"], 0) for mode, n in served.items()}
+        r["quality_boxes_launches"] = {mode: n.get(r["name"], 0) for mode, n in quality.items()}
     check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input
@@ -3273,7 +3449,7 @@ def main() -> int:
     next(r for r in rows if r["name"] == "shift_gather")["host_us_forms"] = host["shift_gather"]
     next(r for r in rows if r["name"] == "wta_stats_from_duals")["host_us_forms"] = host[
         "wta_stats_from_duals"]
-    print(f"chip_smoke wall time: {time.perf_counter() - T0:.1f} s (phases 1-17, the build "
+    print(f"chip_smoke wall time: {time.perf_counter() - T0:.1f} s (phases 1-18, the build "
           f"included)")
     print(json.dumps({"kernels": rows}))
     print(smi())

@@ -11,6 +11,7 @@ from __future__ import annotations
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from stereovision_tpu_torch.core import image as im
@@ -97,6 +98,8 @@ def estimate_depth(model: torch.nn.Module, frame_bgr, net_hw=(256, 256), device=
     """(H, W, 3) BGR frame (uint8 or float, 0-255) → (depth_norm [0, 255]
     (H, W), conf [0, 1] (H, W)) on ``device``, where ``model`` must be."""
     dev = resolve_device(device)
+    if isinstance(frame_bgr, np.ndarray):  # a reversed view (img[..., ::-1]) has negative strides
+        frame_bgr = np.ascontiguousarray(frame_bgr)
     frame = torch.as_tensor(frame_bgr, dtype=torch.float32, device=dev)
     H, W = frame.shape[0], frame.shape[1]
     rgb = frame.flip(-1) / 255.0

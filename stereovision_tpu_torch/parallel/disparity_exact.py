@@ -31,7 +31,10 @@ carries; the reference's plain path ships raw L rows, which give the same
 L. Results equal the single-device engine of the same impl bit for bit.
 
 Like the reference, the exact engine is a full search over the four paths,
-without lane packing.
+without lane packing. It runs on any mesh, one that spans processes
+(:func:`.mesh.initialize_multihost`) too: each process solves the tiles it
+owns (lists carry ``None`` at the others'), takes part in every exchange
+of their frame group's tile axis, and gets the whole result.
 """
 
 from __future__ import annotations
@@ -60,14 +63,6 @@ def _exact_halo(p: sgm.SGMParams) -> int:
                _speckle_radius(p), 8)
 
 
-def _one_process(mesh: Mesh) -> None:
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            "the exact tile-parallel engine runs on a one-process mesh; its vertical chains "
-            "across processes are ROADMAP.md queue 1 item 12 (the exact engine across "
-            "processes)")
-
-
 def _exact_params(params: sgm.SGMParams) -> sgm.SGMParams:
     p = sgm.check_params(params)
     if p.mode != "full" or p.pack != 1 or p.paths != 4 or p.fill_invalid:
@@ -83,22 +78,25 @@ def _exact_params(params: sgm.SGMParams) -> sgm.SGMParams:
 # ---------------------------------------------------------------------------
 
 
-def _tile_costs(lefts, rights, p: sgm.SGMParams, halo: int, impl: str):
-    """One frame's row tiles → (their (S, W, D) costs, their horizontal path
-    volumes): float32 costs and the plain sum of the horizontal pair, or the
-    kernels' int8 costs and dual volumes (``sgm._kernel_costs``). The halo
-    rows only feed the census windows: the cost rows are cropped."""
-    pairs = zip(halo_exchange(lefts, halo), halo_exchange(rights, halo))
+def _tile_cost(lh, rh, p: sgm.SGMParams, halo: int, impl: str):
+    """One haloed tile → (its (S, W, D) cost, its horizontal path volumes):
+    float32 costs and the plain sum of the horizontal pair, or the kernels'
+    int8 costs and dual volumes (``sgm._kernel_costs``). The halo rows only
+    feed the census windows: the cost rows are cropped."""
     if impl != "xla":
-        out = [sgm._kernel_costs(lh, rh, p, crop=halo) for lh, rh in pairs]
-        return [c for c, _ in out], [h for _, h in out]
-    costs, horiz = [], []
-    for lh, rh in pairs:
-        cost = sgm.census_cost_volume(lh, rh, p)[halo:-halo]
-        costs.append(cost)
-        horiz.append((sgm_cuda.aggregate_dir_plain(cost, p.p1, p.p2, axis=1)
-                      + sgm_cuda.aggregate_dir_plain(cost, p.p1, p.p2, axis=1, reverse=True),))
-    return costs, horiz
+        return sgm._kernel_costs(lh, rh, p, crop=halo)
+    cost = sgm.census_cost_volume(lh, rh, p)[halo:-halo]
+    return cost, (sgm_cuda.aggregate_dir_plain(cost, p.p1, p.p2, axis=1)
+                  + sgm_cuda.aggregate_dir_plain(cost, p.p1, p.p2, axis=1, reverse=True),)
+
+
+def _tile_costs(lefts, rights, p: sgm.SGMParams, halo: int, impl: str, axis=None):
+    """One frame's row tiles → (their costs, their horizontal path volumes),
+    ``None`` at the tiles of other processes."""
+    out = [None if lh is None else _tile_cost(lh, rh, p, halo, impl)
+           for lh, rh in zip(halo_exchange(lefts, halo, axis), halo_exchange(rights, halo, axis))]
+    return ([None if o is None else o[0] for o in out],
+            [None if o is None else o[1] for o in out])
 
 
 def _chain_step(p: sgm.SGMParams, impl: str):
@@ -123,9 +121,10 @@ def _chain_step(p: sgm.SGMParams, impl: str):
 
 def _zero_carries(costs):
     """Zero (W, D) float32 boundary rows, forward and backward, one pair per
-    tile: a fresh start."""
-    bf = [torch.zeros(c.shape[1:], dtype=torch.float32, device=c.device) for c in costs]
-    return bf, [b.clone() for b in bf]
+    tile this process holds (``None`` at the others'): a fresh start."""
+    bf = [None if c is None else torch.zeros(c.shape[1:], dtype=torch.float32, device=c.device)
+          for c in costs]
+    return bf, [None if b is None else b.clone() for b in bf]
 
 
 def _select(horiz, vert, p: sgm.SGMParams, impl: str):
@@ -138,13 +137,17 @@ def _select(horiz, vert, p: sgm.SGMParams, impl: str):
     return disp, valid
 
 
-def _finish(selected, p: sgm.SGMParams, halo: int, impl: str):
-    """One frame's per-tile (disp, valid) → speckle and median over haloed
-    rows, cropped: the windows see what the single-device engine's see."""
-    disps = halo_exchange([d for d, _ in selected], halo)
-    valids = halo_exchange([v for _, v in selected], halo)
+def _finish(selected, p: sgm.SGMParams, halo: int, impl: str, axis=None):
+    """One frame's per-tile (disp, valid) (``None`` at other processes'
+    tiles) → speckle and median over haloed rows, cropped: the windows see
+    what the single-device engine's see."""
+    disps = halo_exchange([None if s is None else s[0] for s in selected], halo, axis)
+    valids = halo_exchange([None if s is None else s[1] for s in selected], halo, axis)
     out = []
     for disp, valid in zip(disps, valids):
+        if disp is None:
+            out.append(None)
+            continue
         valid = sgm._speckle_suppress(disp, valid, p, impl)
         if p.median_ksize > 1:
             disp = im.median_blur(disp, p.median_ksize)
@@ -153,44 +156,57 @@ def _finish(selected, p: sgm.SGMParams, halo: int, impl: str):
     return out
 
 
+def _selected(horiz, verts, p: sgm.SGMParams, impl: str):
+    """:func:`_select` on the tiles this process holds."""
+    return [None if h is None else _select(h, v, p, impl) for h, v in zip(horiz, verts)]
+
+
+def _prepared(left, right, params: sgm.SGMParams, mesh: Mesh):
+    """(params, halo, impl, the left tiles, the right tiles) of a call."""
+    p = _exact_params(params)
+    lefts, rights = _scatter(left, mesh), _scatter(right, mesh)
+    return p, _exact_halo(p), sgm._resolve_impl(p.impl), lefts, rights
+
+
 # ---------------------------------------------------------------------------
 # Sweep strategy
 # ---------------------------------------------------------------------------
 
 
-def _chain_sweeps(costs, step):
+def _chain_sweeps(costs, step, axis=None):
     """The vertical chains of one frame: ``ntiles`` seeded sweeps of every
-    tile, each shipping its final carries; the last sweep's volumes are
-    final for every tile. Returns [(vf, vb)] per tile."""
+    tile this process holds, each shipping its final carries; the last
+    sweep's volumes are final for every tile. Returns [(vf, vb)] per tile
+    (``None`` at other processes' tiles)."""
     nt = len(costs)
     bf, bb = _zero_carries(costs)
     for t in range(nt):
-        res = [step(c, (f, b)) for c, f, b in zip(costs, bf, bb)]
+        res = [None if c is None else step(c, (f, b)) for c, f, b in zip(costs, bf, bb)]
         if t < nt - 1:
-            bf = ppermute([r[2] for r in res], _chain_perm(nt, False))
-            bb = ppermute([r[3] for r in res], _chain_perm(nt, True))
-    return [(r[0], r[1]) for r in res]
+            bf = ppermute([None if r is None else r[2] for r in res], _chain_perm(nt, False),
+                          axis)
+            bb = ppermute([None if r is None else r[3] for r in res], _chain_perm(nt, True),
+                          axis)
+    return [None if r is None else (r[0], r[1]) for r in res]
 
 
-def _frame_exact(lefts, rights, p: sgm.SGMParams, halo: int, impl: str):
+def _frame_exact(lefts, rights, p: sgm.SGMParams, halo: int, impl: str, axis=None):
     """One frame's row tiles → per-tile (disp, valid), sweep strategy."""
-    costs, horiz = _tile_costs(lefts, rights, p, halo, impl)
-    verts = _chain_sweeps(costs, _chain_step(p, impl))
-    return _finish([_select(h, v, p, impl) for h, v in zip(horiz, verts)], p, halo, impl)
+    costs, horiz = _tile_costs(lefts, rights, p, halo, impl, axis)
+    verts = _chain_sweeps(costs, _chain_step(p, impl), axis)
+    return _finish(_selected(horiz, verts, p, impl), p, halo, impl, axis)
 
 
 def sharded_disparity_exact(left, right, params: sgm.SGMParams, mesh: Mesh):
     """(B, H, W) pairs (numpy arrays or tensors) → the single-device
-    disparity exactly, as (disp, valid), each (B, H, W) on the mesh's first
+    disparity exactly, as (disp, valid), each (B, H, W) on the mesh's home
     device: row-tiled over the mesh's tile axis, frames over its frame
-    axis. ``ntiles`` chain sweeps per frame."""
-    _one_process(mesh)
-    p = _exact_params(params)
-    halo = _exact_halo(p)
-    impl = sgm._resolve_impl(p.impl)
-    lefts, rights = _scatter(left, mesh), _scatter(right, mesh)
-    parts = [[_frame_exact(lf, rf, p, halo, impl) for lf, rf in zip(lg, rg)]
-             for lg, rg in zip(lefts, rights)]
+    axis. ``ntiles`` chain sweeps per frame. Across processes every process
+    passes the whole batch, solves the positions it owns, and gets the
+    whole result."""
+    p, halo, impl, lefts, rights = _prepared(left, right, params, mesh)
+    parts = [[_frame_exact(lf, rf, p, halo, impl, mesh.tile_axis(g)) for lf, rf in zip(lg, rg)]
+             for g, (lg, rg) in enumerate(zip(lefts, rights))]
     return _gather(parts, mesh)
 
 
@@ -199,56 +215,55 @@ def sharded_disparity_exact(left, right, params: sgm.SGMParams, mesh: Mesh):
 # ---------------------------------------------------------------------------
 
 
-def _chain_pipelined(costs, step):
+def _chain_pipelined(costs, step, axis=None):
     """Software-pipelined vertical chains of a frame group's batch
-    (``costs[k][b]``): one step per tile per pipeline step runs both
-    directions, the forward carry on frame t − k and the backward carry on
-    frame t − (T−1−k) (``cost_b``). One (W, D) float32 boundary row per
-    direction ships per step; B + T − 1 steps; out-of-range steps run on a
-    clamped frame and their volumes are dropped. Returns ``vf[k][b]``,
-    ``vb[k][b]``."""
+    (``costs[k][b]``; ``None`` at other processes' tiles): one step per
+    tile per pipeline step runs both directions, the forward carry on frame
+    t − k and the backward carry on frame t − (T−1−k) (``cost_b``). One
+    (W, D) float32 boundary row per direction ships per step; B + T − 1
+    steps; out-of-range steps run on a clamped frame and their volumes are
+    dropped. A process steps only its own tiles but takes part in every
+    step's exchange. Returns ``vf[k][b]``, ``vb[k][b]``."""
     nt, nb = len(costs), len(costs[0])
     bf, bb = _zero_carries([c[0] for c in costs])
     vf = [[None] * nb for _ in range(nt)]
     vb = [[None] * nb for _ in range(nt)]
     for t in range(nb + nt - 1):
-        ff, fb = [], []
+        ff, fb = [None] * nt, [None] * nt
         for k in range(nt):
+            if costs[k][0] is None:
+                continue
             f_f, f_b = t - k, t - (nt - 1 - k)
-            lf, lb, a, b = step(costs[k][min(max(f_f, 0), nb - 1)], (bf[k], bb[k]),
-                                costs[k][min(max(f_b, 0), nb - 1)])
+            lf, lb, ff[k], fb[k] = step(costs[k][min(max(f_f, 0), nb - 1)], (bf[k], bb[k]),
+                                        costs[k][min(max(f_b, 0), nb - 1)])
             if 0 <= f_f < nb:
                 vf[k][f_f] = lf
             if 0 <= f_b < nb:
                 vb[k][f_b] = lb
-            ff.append(a)
-            fb.append(b)
         # the scan's first tile gets zeros back: a fresh start for the next frame
-        bf = ppermute(ff, _chain_perm(nt, False))
-        bb = ppermute(fb, _chain_perm(nt, True))
+        bf = ppermute(ff, _chain_perm(nt, False), axis)
+        bb = ppermute(fb, _chain_perm(nt, True), axis)
     return vf, vb
 
 
-def _group_pipelined(lefts, rights, p: sgm.SGMParams, halo: int, impl: str):
+def _group_pipelined(lefts, rights, p: sgm.SGMParams, halo: int, impl: str, axis=None):
     """A frame group (``lefts[b][k]``) → per frame, per-tile (disp, valid)."""
     nb, nt = len(lefts), len(lefts[0])
-    per_frame = [_tile_costs(lf, rf, p, halo, impl) for lf, rf in zip(lefts, rights)]
+    per_frame = [_tile_costs(lf, rf, p, halo, impl, axis) for lf, rf in zip(lefts, rights)]
     costs = [[per_frame[b][0][k] for b in range(nb)] for k in range(nt)]
-    vf, vb = _chain_pipelined(costs, _chain_step(p, impl))
-    return [_finish([_select(per_frame[b][1][k], (vf[k][b], vb[k][b]), p, impl)
-                     for k in range(nt)], p, halo, impl) for b in range(nb)]
+    vf, vb = _chain_pipelined(costs, _chain_step(p, impl), axis)
+    return [_finish(_selected(per_frame[b][1], [(vf[k][b], vb[k][b]) for k in range(nt)], p,
+                              impl), p, halo, impl, axis) for b in range(nb)]
 
 
 def sharded_disparity_exact_pipelined(left, right, params: sgm.SGMParams, mesh: Mesh):
     """(B, H, W) pairs → the single-device disparity exactly, as
-    :func:`sharded_disparity_exact`, with the cross-tile vertical chains
-    software-pipelined over each frame group's batch (see the module
-    docstring). The group's cost volumes are all made before the chain (as
-    the reference does: (B/frame)·T slabs of int8 on the kernel path)."""
-    _one_process(mesh)
-    p = _exact_params(params)
-    halo = _exact_halo(p)
-    impl = sgm._resolve_impl(p.impl)
-    lefts, rights = _scatter(left, mesh), _scatter(right, mesh)
-    parts = [_group_pipelined(lg, rg, p, halo, impl) for lg, rg in zip(lefts, rights)]
+    :func:`sharded_disparity_exact` (across processes too), with the
+    cross-tile vertical chains software-pipelined over each frame group's
+    batch (see the module docstring). The group's cost volumes are all made
+    before the chain (as the reference does: (B/frame)·T slabs of int8 on
+    the kernel path)."""
+    p, halo, impl, lefts, rights = _prepared(left, right, params, mesh)
+    parts = [_group_pipelined(lg, rg, p, halo, impl, mesh.tile_axis(g))
+             for g, (lg, rg) in enumerate(zip(lefts, rights))]
     return _gather(parts, mesh)

@@ -6,8 +6,9 @@ tests/test_torch_multihost.py:
 Joins the group (``initialize_multihost`` with a coordinator, or by
 ``env://``), then holds each cross-process result against the same call on
 a one-process mesh of as many CPU positions, computed in this process:
-``psum``, ``ppermute``, ``halo_exchange``, ``sharded_disparity`` (tiles and
-frames across the processes), ``distributed_slam_ba`` (the frame axis
+``psum``, ``ppermute``, ``halo_exchange``, ``sharded_disparity``,
+``sharded_disparity_exact`` and ``sharded_disparity_exact_pipelined``
+(tiles and frames across the processes), ``distributed_slam_ba`` (the frame axis
 across them, and a tile axis where one process owns no frame position) and
 ``distributed_mono_ba``. Prints one JSON line; any mismatch raises. Imports
 nothing of JAX.
@@ -130,12 +131,18 @@ def main():
         _equal(parallel.sharded_disparity(left, right, p, m_cross),
                parallel.sharded_disparity(left, right, p, m_one), f"sharded_disparity ({name})")
         done.append(f"sharded_disparity_{name}")
-    try:
-        parallel.sharded_disparity_exact(left, right, SGMParams(num_disparities=16), tiles)
-        raise AssertionError("the exact engine ran on a mesh across processes")
-    except NotImplementedError as e:
-        assert "queue 1 item 12" in str(e), e
-
+    # the exact engine, both strategies, on the tile axis and the frame axis
+    # across the processes, under the plain impl and the kernel impl (their
+    # plain versions on CPU tensors)
+    for name, m_cross, m_one in (
+            ("tiles", tiles, parallel.make_mesh(frame=1, tile=world, devices=["cpu"] * world)),
+            ("frames", frames, local)):
+        for fn in (parallel.sharded_disparity_exact, parallel.sharded_disparity_exact_pipelined):
+            for impl in ("xla", "auto"):
+                p = SGMParams(num_disparities=16, impl=impl)
+                _equal(fn(left, right, p, m_cross), fn(left, right, p, m_one),
+                       f"{fn.__name__} ({name}, impl={impl})")
+            done.append(f"{fn.__name__}_{name}")
     rig = _slam_rig()
     for name, m_cross, m_one in (
             ("frames", frames, local),

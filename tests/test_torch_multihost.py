@@ -6,10 +6,11 @@ runs out of time fails the test.
 Each process holds its cross-process results against the same calls on a
 one-process mesh of as many CPU positions, bit for bit (``torch.equal``):
 ``psum`` (an all-gather, then the sum in position order), ``ppermute`` and
-``halo_exchange`` (point to point), ``sharded_disparity`` with row tiles
-and with frames across the processes, ``distributed_slam_ba`` on the frame
-axis and on a tile axis (one process owns no frame position) and
-``distributed_mono_ba``; and the exact engine raises on such a mesh.
+``halo_exchange`` (point to point), ``sharded_disparity`` and the exact
+engine's two strategies (each under the plain and the kernel impl) with
+row tiles and with frames across the processes, ``distributed_slam_ba`` on
+the frame axis and on a tile axis (one process owns no frame position) and
+``distributed_mono_ba``.
 """
 
 import json
@@ -30,7 +31,9 @@ REPO = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).resolve().parent / "_multihost_worker.py"
 TIMEOUT_S = 150
 EVERY_CHECK = ["psum", "ppermute", "halo_exchange", "sharded_disparity_tiles",
-               "sharded_disparity_frames", "distributed_slam_ba_frames",
+               "sharded_disparity_frames", "sharded_disparity_exact_tiles",
+               "sharded_disparity_exact_pipelined_tiles", "sharded_disparity_exact_frames",
+               "sharded_disparity_exact_pipelined_frames", "distributed_slam_ba_frames",
                "distributed_slam_ba_tiles", "distributed_mono_ba"]
 
 

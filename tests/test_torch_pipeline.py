@@ -218,15 +218,19 @@ def test_calibration_store_round_trip(tmp_path, rig_calibration):
 _FORBIDDEN = {"jax", "jaxlib", "stereovision_tpu", "flax", "msgpack"}
 
 
+def _imported_roots_of(node):
+    if isinstance(node, ast.Import):
+        for alias in node.names:
+            yield alias.name.split(".")[0], node.lineno
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        yield node.module.split(".")[0], node.lineno
+
+
 def _imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name.split(".")[0], node.lineno
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module.split(".")[0], node.lineno
-        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+        yield from _imported_roots_of(node)
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
               and node.args and isinstance(node.args[0], ast.Constant)):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
@@ -259,11 +263,20 @@ def test_port_imports_no_jax():
     assert {f"stereovision_tpu_torch/{name}.py" for name in (
         "apps/serve", "models/synthetic_scenes", "models/train_synthetic", "parallel/mesh",
         "parallel/disparity", "convert")} <= scanned
+    # the quality evaluations
+    assert {f"stereovision_tpu_torch/scripts/{name}.py" for name in (
+        "eval_quality", "eval_speckle", "eval_mono")} <= scanned
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in _FORBIDDEN]
     assert not bad, bad
     # the match is on the whole module name: the port's own name is allowed
     assert "stereovision_tpu_torch" not in _FORBIDDEN
+    # cv2 (absent from the card's host) is imported inside functions only
+    top = [f"{f.relative_to(REPO)}:{node.lineno}" for f in files
+           for node in ast.parse(f.read_text()).body
+           if isinstance(node, (ast.Import, ast.ImportFrom))
+           and any(root == "cv2" for root, _ in _imported_roots_of(node))]
+    assert not top, top
 
 
 def test_import_scan_catches_a_forbidden_import(tmp_path):
