@@ -20,7 +20,10 @@ resolves to the statistics kernel (:func:`stereo.autotune.tune_stats_impl`).
 rescaled and rectified anew (:func:`_rescale_calibration`);
 ``exact_speckle`` replaces the engine's windowed speckle approximation by
 the exact connected-component filter on the same device
-(:func:`stereo.sgm.exact_speckle_postpass`).
+(:func:`stereo.sgm.exact_speckle_postpass`). Under a profile each stage of
+a call is a span (``depth.upload``, ``depth.rectify``, ``depth.engine``,
+``depth.metric``, ``depth.exact_speckle``), and each wait of the host on
+the card a ``sync.*`` span (:func:`utils.profiling.annotate`).
 
 ``FusedPipeline`` runs stereo (the hierarchical engine), MidasSmall and
 flow depth on the rectified pair, calibrates them against each other and
@@ -41,6 +44,7 @@ from stereovision_tpu_torch.stereo import SGMParams, disparity_with_confidence
 from stereovision_tpu_torch.stereo.autotune import tune_stats_impl
 from stereovision_tpu_torch.stereo.sgm import check_params, exact_speckle_postpass
 from stereovision_tpu_torch.utils.backend import resolve_device, upload
+from stereovision_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -99,28 +103,42 @@ class DepthPipeline:
                                refine_range=refine_range)
         return cls(cal, params, **kw)
 
+    def _upload(self, img):
+        """An image as float32 on the device. From host memory, pinned or
+        not, the cast happens on the host and the copy blocks: the host
+        waits for the card (a ``sync.upload`` span)."""
+        if self.device.type != "cuda" or (torch.is_tensor(img) and img.is_cuda):
+            return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        with annotate("sync.upload"):
+            return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+
     def _run(self, left, right):
         h, w = self.proc_size[1], self.proc_size[0]
-        left = torch.as_tensor(left, dtype=torch.float32, device=self.device)
-        right = torch.as_tensor(right, dtype=torch.float32, device=self.device)
-        if left.shape != (h, w):
-            left = im.resize(left, (h, w))
-            right = im.resize(right, (h, w))
-        mx1, my1, mx2, my2 = self._maps
-        lr = im.remap(left, mx1, my1)
-        rr = im.remap(right, mx2, my2)
-        disp, conf = disparity_with_confidence(lr, rr, self.params, self.device)
-        depth = geom.disparity_to_depth(disp, self.focal, self.baseline_m)
-        depth = depth.clamp(self.min_depth, self.max_depth)
-        depth = torch.where(conf > 0, depth, 0.0)
+        with annotate("depth.upload"):
+            left = self._upload(left)
+            right = self._upload(right)
+        with annotate("depth.rectify"):
+            if left.shape != (h, w):
+                left = im.resize(left, (h, w))
+                right = im.resize(right, (h, w))
+            mx1, my1, mx2, my2 = self._maps
+            lr = im.remap(left, mx1, my1)
+            rr = im.remap(right, mx2, my2)
+        with annotate("depth.engine"):
+            disp, conf = disparity_with_confidence(lr, rr, self.params, self.device)
+        with annotate("depth.metric"):
+            depth = geom.disparity_to_depth(disp, self.focal, self.baseline_m)
+            depth = depth.clamp(self.min_depth, self.max_depth)
+            depth = torch.where(conf > 0, depth, 0.0)
         return disp, conf, depth
 
     def __call__(self, left, right) -> DepthResult:
         disp, conf, depth = self._run(left, right)
         if self._exact_speckle:
-            disp, valid = exact_speckle_postpass(disp, self._speckle_params)
-            conf = torch.where(valid, conf, 0.0)
-            depth = torch.where(valid, depth, 0.0)
+            with annotate("depth.exact_speckle"):
+                disp, valid = exact_speckle_postpass(disp, self._speckle_params)
+                conf = torch.where(valid, conf, 0.0)
+                depth = torch.where(valid, depth, 0.0)
         return DepthResult(disp, conf, depth)
 
     def batch(self, lefts, rights) -> DepthResult:
@@ -298,7 +316,8 @@ class FusedPipeline:
     def _read_scores(self):
         host, event = self._pending_scores
         if event is not None:
-            event.synchronize()  # the copy left the card a frame ago
+            with annotate("sync.occlusion_scores"):
+                event.synchronize()  # the copy left the card a frame ago
         return float(host[0]), float(host[1])
 
     def __call__(self, left, right, t_now: float):
@@ -386,6 +405,7 @@ class FusedPipeline:
                            "mode": mode, "occlusion_code": state, "camera_moving": moving})
         outs = {key: torch.stack([f[key] for f in frames]) for key in frames[0]}
         self._frame += n
-        st, pend, cnt = torch.stack(hyst).tolist()
+        with annotate("sync.hysteresis"):
+            st, pend, cnt = torch.stack(hyst).tolist()
         hy.state, hy._pending, hy._count = OCCLUSION_CODES[st], OCCLUSION_CODES[pend], cnt
         return outs

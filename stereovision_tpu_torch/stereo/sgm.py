@@ -20,6 +20,12 @@ reference's two do.
 Lane packing (``pack``) is ported by its results, not its layout: the pack
 strips of the padded image run as separate searches over one shared census,
 as the reference's XLA branch runs them.
+
+Each stage opens a profiler span (:func:`utils.profiling.annotate`):
+``sgm.search`` (census → cost → aggregation → WTA → LR), ``sgm.coarse``,
+``sgm.shifts``, ``sgm.census``, ``sgm.refine``, ``sgm.arbitrate``,
+``sgm.speckle``, ``sgm.fill`` and ``sgm.median``; no name opens inside
+itself.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 from stereovision_tpu_torch.core import image as im
 from stereovision_tpu_torch.ops import sgm_cuda
 from stereovision_tpu_torch.utils.backend import resolve_device
+from stereovision_tpu_torch.utils.profiling import annotate
 
 _BIG = 1e9
 
@@ -287,13 +294,14 @@ def _speckle_suppress(disp, valid, p: SGMParams, impl: str):
     k = max(3, int((2 * p.speckle_window_size) ** 0.5) | 1)
     r = float(p.speckle_range)
     nbins = (p.num_disparities + int(r)) // max(1, int(r)) + 2
-    dv = torch.where(valid, disp - p.min_disparity, -2.0 * r)
-    if impl == "xla":
-        count = sgm_cuda.speckle_counts_plain(dv, k, r, nbins)
-    else:
-        count = sgm_cuda.speckle_counts(dv, k, r, nbins)
-    min_count = min(p.speckle_window_size, k * k) * 0.25
-    return valid & (count >= min_count)
+    with annotate("sgm.speckle"):
+        dv = torch.where(valid, disp - p.min_disparity, -2.0 * r)
+        if impl == "xla":
+            count = sgm_cuda.speckle_counts_plain(dv, k, r, nbins)
+        else:
+            count = sgm_cuda.speckle_counts(dv, k, r, nbins)
+        min_count = min(p.speckle_window_size, k * k) * 0.25
+        return valid & (count >= min_count)
 
 
 # ---------------------------------------------------------------------------
@@ -450,15 +458,18 @@ def _compute_full(left, right, p: SGMParams, cl_pre=None, cr_pre=None):
     left = left.to(torch.float32).contiguous()
     right = right.to(torch.float32).contiguous()
     impl = _resolve_impl(p.impl)
-    if p.pack > 1:
-        if p.pack not in (2, 4) or p.num_disparities > 128 // p.pack:
-            raise ValueError("lane packing needs pack ∈ {2, 4} and num_disparities ≤ 128/pack")
-        disp, valid, best = _disparity_core_packed(left, right, p, impl, cl_pre, cr_pre)
-    else:
-        disp, valid, best = _disparity_core(left, right, p, impl)
+    with annotate("sgm.search"):
+        if p.pack > 1:
+            if p.pack not in (2, 4) or p.num_disparities > 128 // p.pack:
+                raise ValueError(
+                    "lane packing needs pack ∈ {2, 4} and num_disparities ≤ 128/pack")
+            disp, valid, best = _disparity_core_packed(left, right, p, impl, cl_pre, cr_pre)
+        else:
+            disp, valid, best = _disparity_core(left, right, p, impl)
     valid = _speckle_suppress(disp, valid, p, impl)
     if p.median_ksize > 1:
-        disp = im.median_blur(disp, p.median_ksize)
+        with annotate("sgm.median"):
+            disp = im.median_blur(disp, p.median_ksize)
     disp = torch.where(valid, disp, float(p.min_disparity) - 1.0)
     return disp, valid, best
 
@@ -474,7 +485,8 @@ def _compute_disparity(left, right, p: SGMParams):
     disp, valid, _ = _compute_full(left, right, p)
     if p.fill_invalid:
         # the fill_invalid contract (all-true mask) holds in full mode too
-        disp = _nearest4_fill(disp, valid, p)
+        with annotate("sgm.fill"):
+            disp = _nearest4_fill(disp, valid, p)
         valid = torch.ones_like(valid)
     return disp, valid
 
@@ -510,59 +522,72 @@ def _compute_disparity_hier(left, right, p: SGMParams):
     left = left.to(torch.float32)
     right = right.to(torch.float32)
     impl = _resolve_impl(p.impl)
-    d_up = _coarse_disparity(left, right, p)
-    shift, shift_b = _window_shifts(d_up, p)
+    with annotate("sgm.coarse"):
+        d_up = _coarse_disparity(left, right, p)
+    with annotate("sgm.shifts"):
+        shift, shift_b = _window_shifts(d_up, p)
     if shift_b is None:
-        disp, valid, _ = _refine_with_shift(left, right, shift, p, mask_seams=False, post=True)
+        with annotate("sgm.refine"):
+            disp, valid, _ = _refine_with_shift(left, right, shift, p, mask_seams=False,
+                                                post=True)
         if p.fill_invalid:
-            disp = _nearest4_fill(disp, valid, p)
+            with annotate("sgm.fill"):
+                disp = _nearest4_fill(disp, valid, p)
             valid = torch.ones_like(valid)
         return disp, valid
     if R <= 32 and H % 16 == 0:
         # stacked [A; B] refine; its censuses double as the arbitration's
-        cl_arb = _census_words_for(left, p, impl)
-        cr_arb = _census_words_for(right, p, impl)
-        (disp, valid, cost_a), (disp_b, valid_b, cost_b) = _refine_two_windows(
-            left, right, shift, shift_b, p, cl1=cl_arb, cr1=cr_arb)
+        with annotate("sgm.census"):
+            cl_arb = _census_words_for(left, p, impl)
+            cr_arb = _census_words_for(right, p, impl)
+        with annotate("sgm.refine"):
+            (disp, valid, cost_a), (disp_b, valid_b, cost_b) = _refine_two_windows(
+                left, right, shift, shift_b, p, cl1=cl_arb, cr1=cr_arb)
     else:
         cl_pre = None
         if R <= 64:
             # both refine passes census the same (pack-padded) left image
-            cl_pre = _census_words_for(_pack_pad(left, 4 if R <= 32 else 2), p, impl)
-        disp, valid, cost_a = _refine_with_shift(
-            left, right, shift, p, mask_seams=True, cl_pre=cl_pre, post=False)
-        disp_b, valid_b, cost_b = _refine_with_shift(
-            left, right, shift_b, p, mask_seams=True, cl_pre=cl_pre, post=False, lr=False)
-        cl_arb = cl_pre if cl_pre is not None else _census_words_for(left, p, impl)
-        cr_arb = _census_words_for(right, p, impl)
+            with annotate("sgm.census"):
+                cl_pre = _census_words_for(_pack_pad(left, 4 if R <= 32 else 2), p, impl)
+        with annotate("sgm.refine"):
+            disp, valid, cost_a = _refine_with_shift(
+                left, right, shift, p, mask_seams=True, cl_pre=cl_pre, post=False)
+            disp_b, valid_b, cost_b = _refine_with_shift(
+                left, right, shift_b, p, mask_seams=True, cl_pre=cl_pre, post=False, lr=False)
+        with annotate("sgm.census"):
+            cl_arb = cl_pre if cl_pre is not None else _census_words_for(left, p, impl)
+            cr_arb = _census_words_for(right, p, impl)
 
     # merge: census Hamming distance against the original right image at
     # each candidate decides between the windows; the aggregated cost breaks
     # near-ties; census_kill drops candidates with noise-level evidence.
     # Offsets are zeroed where the distance is not consumed (the reference's
     # gather pruning); the result is the same.
-    cd_a = _census_distance(cl_arb, cr_arb, torch.where(valid, disp, 0.0), p, impl)
-    if p.census_kill > 0:
-        valid = valid & (cd_a <= p.census_kill)
-    disagree = (disp_b - disp).abs() > 2.0
-    need_b = ~valid | disagree
-    cd_b = _census_distance(cl_arb, cr_arb, torch.where(need_b, disp_b, 0.0), p, impl)
-    if p.census_kill > 0:
-        valid_b = valid_b & (cd_b <= p.census_kill)
-    better_b = torch.where((cd_b - cd_a).abs() > 1.0, cd_b < cd_a, cost_b < cost_a)
-    take_b = valid_b & (~valid | (disagree & better_b))
-    disp = torch.where(take_b, disp_b, disp)
-    valid = valid | valid_b
+    with annotate("sgm.arbitrate"):
+        cd_a = _census_distance(cl_arb, cr_arb, torch.where(valid, disp, 0.0), p, impl)
+        if p.census_kill > 0:
+            valid = valid & (cd_a <= p.census_kill)
+        disagree = (disp_b - disp).abs() > 2.0
+        need_b = ~valid | disagree
+        cd_b = _census_distance(cl_arb, cr_arb, torch.where(need_b, disp_b, 0.0), p, impl)
+        if p.census_kill > 0:
+            valid_b = valid_b & (cd_b <= p.census_kill)
+        better_b = torch.where((cd_b - cd_a).abs() > 1.0, cd_b < cd_a, cost_b < cost_a)
+        take_b = valid_b & (~valid | (disagree & better_b))
+        disp = torch.where(take_b, disp_b, disp)
+        valid = valid | valid_b
     d_up_c = d_up.clamp(p.min_disparity, p.min_disparity + p.num_disparities - 1)
     # one post pass on the merged field
     valid = _speckle_suppress(disp, valid, p, impl)
     if p.fill_invalid:
         # one median over the candidate-filled field serves as the merge's
         # median and the fill's smoothing
-        disp = _census_fill(disp, valid, d_up_c, cl_arb, cr_arb, p, impl, median_all=True)
+        with annotate("sgm.fill"):
+            disp = _census_fill(disp, valid, d_up_c, cl_arb, cr_arb, p, impl, median_all=True)
         return disp, torch.ones_like(valid)
     if p.median_ksize > 1:
-        disp = im.median_blur(torch.where(valid, disp, d_up_c), p.median_ksize)
+        with annotate("sgm.median"):
+            disp = im.median_blur(torch.where(valid, disp, d_up_c), p.median_ksize)
     disp = torch.where(valid, disp, float(p.min_disparity) - 1.0)
     return disp, valid
 
@@ -589,7 +614,8 @@ def _coarse_disparity(left, right, p: SGMParams):
     med3 = torch.maximum(torch.minimum(dl, dr), torch.minimum(torch.maximum(dl, dr), fill_g))
     fill = torch.where(has_l & has_r, med3,
                        torch.where(has_l, dl, torch.where(has_r, dr, fill_g)))
-    disp_c = im.median_blur(torch.where(valid_c, disp_c, fill), 5)
+    with annotate("sgm.median"):
+        disp_c = im.median_blur(torch.where(valid_c, disp_c, fill), 5)
     # the exact column ratio (1280/426 = 3.005), not s
     return im.resize(disp_c, (H, W)) * (W / (W // s))
 
@@ -890,9 +916,10 @@ def exact_speckle_postpass(disp, params: SGMParams, impl: str = "device"):
         else:
             from stereovision_tpu_torch.ops import native
 
+            with annotate("sync.exact_speckle"):
+                host = d.cpu()
             d = torch.from_numpy(native.filter_speckles(
-                d.cpu().numpy(), sentinel, params.speckle_window_size,
-                params.speckle_range)[0])
+                host.numpy(), sentinel, params.speckle_window_size, params.speckle_range)[0])
     return d, d > sentinel
 
 

@@ -14,8 +14,9 @@ fixed point: a round takes the minimum over every run of connected pixels
 along the rows, then along the columns, and rounds repeat until one
 changes nothing. A run's minimum is exact however it is reduced, so each
 round gives the reference's labels; the loop tests for the fixed point on
-the host, one sync a round. Real disparity maps settle in a handful of
-rounds; a spiral takes O(its length).
+the host, one sync a round (a ``sync.speckle_round`` span; the filter's
+other waits on the card are ``sync.exact_speckle`` spans). Real disparity
+maps settle in a handful of rounds; a spiral takes O(its length).
 
 Labels are float32 linear indices, exact below 2^24 pixels (a 720p frame
 has 921,600).
@@ -24,6 +25,8 @@ has 921,600).
 from __future__ import annotations
 
 import torch
+
+from stereovision_tpu_torch.utils.profiling import annotate
 
 __all__ = ["label_components", "label_components_counted", "component_sizes",
            "filter_speckles_exact"]
@@ -44,7 +47,8 @@ def _run_min(lab: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
 
 
 def _edges(disp: torch.Tensor, max_diff) -> tuple:
-    md = torch.as_tensor(max_diff, dtype=disp.dtype, device=disp.device)
+    with annotate("sync.exact_speckle"):  # a host number copied to the card
+        md = torch.as_tensor(max_diff, dtype=disp.dtype, device=disp.device)
     H, W = disp.shape
     ch = torch.zeros((H, W), dtype=torch.bool, device=disp.device)
     cv = torch.zeros((H, W), dtype=torch.bool, device=disp.device)
@@ -71,7 +75,10 @@ def label_components_counted(disp: torch.Tensor, max_diff):
     while True:
         nxt = round_(lab)
         rounds += 1
-        if not bool(torch.any(nxt != lab)):
+        changed = torch.any(nxt != lab)
+        with annotate("sync.speckle_round"):
+            changed = bool(changed)
+        if not changed:
             return nxt, rounds
         lab = nxt
 
@@ -87,7 +94,8 @@ def component_sizes(lab: torch.Tensor) -> torch.Tensor:
     """(H, W) canonical labels → (H, W) int32 pixel count of each pixel's
     component."""
     idx = lab.to(torch.int64).ravel()
-    counts = torch.bincount(idx, minlength=lab.numel())
+    with annotate("sync.exact_speckle"):  # bincount reads the labels' range on the host
+        counts = torch.bincount(idx, minlength=lab.numel())
     return counts[idx].to(torch.int32).reshape(lab.shape)
 
 
@@ -99,6 +107,7 @@ def filter_speckles_exact(disp, new_val, max_speckle_size: int, max_diff):
     disp = torch.as_tensor(disp).to(torch.float32)
     sizes = component_sizes(label_components(disp, max_diff))
     kill = sizes <= max_speckle_size
-    out = torch.where(kill, torch.as_tensor(new_val, dtype=torch.float32, device=disp.device),
-                      disp)
+    with annotate("sync.exact_speckle"):
+        new = torch.as_tensor(new_val, dtype=torch.float32, device=disp.device)
+    out = torch.where(kill, new, disp)
     return out, kill.sum(dtype=torch.int32)

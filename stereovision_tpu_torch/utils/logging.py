@@ -2,7 +2,8 @@
 
 Counterpart of ``stereovision_tpu/utils/logging.py``: ``get_logger`` and
 ``StageTimer``, which averages each stage's wall time and reports every
-``report_every`` frames (the original tool's per-30-frame stats block).
+``report_every`` frames (the original tool's per-30-frame stats block, the
+fused app's), and names each stage in a profiler trace too.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import json
 import logging
 import time
+
+from stereovision_tpu_torch.utils.profiling import annotate
 
 
 def get_logger(name: str = "stereovision_tpu_torch", level: int = logging.INFO) -> logging.Logger:
@@ -25,7 +28,9 @@ def get_logger(name: str = "stereovision_tpu_torch", level: int = logging.INFO) 
 class StageTimer:
     """Accumulates wall-clock per stage; reports every ``report_every``
     frames. A stage timed around a call that only queues work on a card
-    measures the queuing, not the card."""
+    measures the queuing, not the card. Each stage is also a profiler span,
+    ``fused.<stage>`` (:func:`utils.profiling.annotate`), so that the stats
+    block and a trace name the same stages."""
 
     def __init__(self, report_every: int = 30, logger: logging.Logger | None = None):
         self.report_every = report_every
@@ -40,11 +45,14 @@ class StageTimer:
             self.timer, self.stage = timer, stage
 
         def __enter__(self):
+            self.span = annotate(f"fused.{self.stage}")
+            self.span.__enter__()
             self.t0 = time.perf_counter()
             return self
 
         def __exit__(self, *exc):
             self.timer._acc.setdefault(self.stage, []).append(time.perf_counter() - self.t0)
+            self.span.__exit__(*exc)
 
     def stage(self, name: str) -> "StageTimer._Ctx":
         return self._Ctx(self, name)

@@ -1,5 +1,5 @@
-"""Profiling helpers: a ``torch.profiler`` trace of a region, named ranges
-inside it, and device-synchronized timing of a call.
+"""Profiling helpers: a ``torch.profiler`` trace of a region, and the named
+spans that the program opens inside such a trace.
 
 Counterpart of ``stereovision_tpu/utils/profiling.py``.
 """
@@ -7,10 +7,11 @@ Counterpart of ``stereovision_tpu/utils/profiling.py``.
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -31,31 +32,17 @@ def trace(log_dir):
 
 
 def annotate(name: str):
-    """A named range that shows up inside profiler traces."""
+    """A named span of the profiler trace being recorded: a
+    ``record_function`` while a ``torch.profiler`` profile records (its
+    times on the profiler's host clock, to which the trace aligns the CUDA
+    runtime calls and the card's work), else one shared null context, a
+    check of a process-wide flag.
+
+    The work launched inside a span is the span's. Names are
+    ``<layer>.<stage>`` (``depth.engine``, ``sgm.search``); a span opened
+    around a point where the host waits on the card is named ``sync.<what>``,
+    so the count of ``sync.*`` spans is the count of such waits. A name
+    never opens inside itself."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
-
-
-def _sync(out) -> None:
-    """Wait for the device work behind ``out`` (a tensor, or a tuple, list
-    or dict of them): one synchronization of its first tensor's card
-    (nothing to wait for on the CPU)."""
-    if isinstance(out, dict):
-        out = list(out.values())
-    leaves = out if isinstance(out, (tuple, list)) else (out,)
-    first = next((t for t in leaves if torch.is_tensor(t)), None)
-    if first is not None and first.is_cuda:
-        torch.cuda.synchronize(first.device)
-
-
-def timed(fn, *args, n: int = 10, warmup: int = 1) -> float:
-    """Seconds per call of ``fn(*args)``: ``warmup`` calls, then n
-    dispatches and one synchronization after them (the device's queue
-    stays full)."""
-    for _ in range(warmup):
-        _sync(fn(*args))
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(n):
-        out = fn(*args)
-    _sync(out)
-    return (time.perf_counter() - t0) / n

@@ -4,7 +4,7 @@ package's.
 ``core.image.percentile_normalize`` equals the reference's within 1e-6 on
 data with ties, on continuous data and on a constant image.
 ``utils.profiling``: ``trace`` writes a Chrome trace holding the
-``annotate`` range, ``timed`` returns positive seconds. ``apps.mono_ai``
+``annotate`` range. ``apps.mono_ai``
 (``--arch small``, the bundled weights, ``--device cpu``) and
 ``apps.mono_motion`` (four frames shifted 2 px apart, the reference's
 hypothesis draws) on the reference test's frames
@@ -60,8 +60,6 @@ def test_profiling(tmp_path):
             (x @ x).sum()
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "mono-depth range" for e in events)
-    secs = profiling.timed(lambda a: {"y": a @ a}, x, n=3, warmup=1)
-    assert 0 < secs < 10
 
 
 def _jpgs(root, frames):
