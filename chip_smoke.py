@@ -19,7 +19,7 @@ exact speckle filter) and the separable remap run at full width. Phases,
 each of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the eleven CUDA sources of ``stereovision_tpu_torch/ops/csrc``
+2. build the twelve CUDA sources of ``stereovision_tpu_torch/ops/csrc``
    from the checkout, and six of them again with their measurement
    variants, earlier designs and ablations, one nvcc per library, all at
    once;
@@ -31,7 +31,8 @@ each of which raises (exit code non-zero, no result line) on failure:
    with the LR check off, ``hwd`` with it on);
 4. run each path through ``DepthPipeline`` with the launch counts set to 0
    just before and read just after: every kernel of the path must have
-   launched (``sum_wta`` once a full-search frame), the plain
+   launched (``sum_wta`` once a full-search frame, the median three times
+   a production frame and once a full-search one), the plain
    ``sgm_cuda.sum_wta`` never; the result must match the path's plain form (``impl="xla"``) on
    the card and recover the synthetic rigs' shifts (a flat rig at 40 px; for
    the production path a background at 40 px and a box at 200 px);
@@ -42,7 +43,10 @@ each of which raises (exit code non-zero, no result line) on failure:
    ``torch.gather``, and the stages around them; each kernel's replay, and
    ``torch.gather``'s, is timed twice: with events around 20 calls (host
    included) and as 20 replays of a CUDA graph that captured it once (the
-   device alone, ``device_ms``);
+   device alone, ``device_ms``); the median (:func:`median_row`) on the
+   production and the full frame's launches and on seeded maps of NaN,
+   ±inf and ±0, bit for bit against the plain network, timed beside its
+   byte bound, its network's floor and the plain network;
 6. the exact row-tiled engine (``SGMParams(num_disparities=320)``) on
    ``make_mesh(frame=1, tile=4, devices=["cuda:0"] * 4)``: the sweep
    strategy on 2 flat-rig frames, the pipelined one on 4, each recorded
@@ -218,10 +222,20 @@ SLICE3_KERNELS = {
     "aggregate_dir": ("aggregate_dir.cu", 595, "aggregate_dir_plain"),
     "wta": ("wta.cu", 1701, "wta_plain"),
 }
-# the full search's own kernel (paths=4: the LR-off and LR-on frames, each
-# exact-engine tile): wrapper → (launch-count name, source, the TPU kernel's
-# pallas_call); its plain version is the wrapper's name + "_plain"
-FULL_KERNELS = {"sum_wta_fused": ("sum_wta", "sum_wta.cu", "scripts/bench_sumwta.py:110")}
+# the kernels counted under another name than their wrapper's: the full
+# search's own (paths=4: the LR-off and LR-on frames, each exact-engine tile)
+# and the median (every engine path): wrapper → (launch-count name, source,
+# the TPU kernel's pallas_call, or what it replaces where there is none);
+# the plain version is the wrapper's name + "_plain"
+NAMED_KERNELS = {"sum_wta_fused": ("sum_wta", "sum_wta.cu", "scripts/bench_sumwta.py:110"),
+                 "median_blur": ("median", "median.cu",
+                                 "no pallas_call: stereovision_tpu/core/image.py:median_blur "
+                                 "(plain jnp)")}
+# the median's launches in one frame of each path of phase 3
+MEDIAN_LAUNCHES = {"full_lr_off": 1, "full_lr_on": 1, "production": 3}
+# the card's rate of float32 min/max, an assumption: half its float32 instruction
+# rate (OPS_PER_S counts a multiply-add as two)
+MINMAX_PER_S = OPS_PER_S / 4
 # the measurement kernels (phase 10): launch-count name → (source, the TPU
 # kernel's pallas_call, the row of its script's run that the kernels line
 # reports: the shipping kernel's counterpart at the engine's shape)
@@ -256,7 +270,8 @@ DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring
            "speckle_counts": "column counts", "right_disparity": "diagonal boxes",
            "nearest_valid_lohi": "scans in registers",
            "census_words": "staged rows, 4 pixels a lane",
-           "cost_volume": "lanes over x, staged span"}
+           "cost_volume": "lanes over x, staged span",
+           "median": "staged tile, network in registers"}
 # lines past the 8192 that nearest_valid_lohi once refused: shape, axis
 LONG_LINES = (((4, 10000), 1), ((9000, 6), 0))
 FIRST_DESIGN = "first port"
@@ -270,7 +285,7 @@ STAGED_SHAPES = (("the stacked refine", (960, W, 32), 1),
                  ("an exact-engine slab", (H // 4, W, D), 0))
 # stages of the production frame, timed by replaying their recorded calls
 STAGES = {
-    "im": ("remap", "resize", "median_blur"),
+    "im": ("remap", "resize"),
     "sgm": ("_coarse_disparity", "_window_shifts", "_refine_two_windows",
             "_census_distance", "_speckle_suppress", "_census_fill"),
     "sgm_cuda": ("st_from_duals", "sum_wta_fused"),
@@ -412,6 +427,12 @@ def work(name, args, kw):
         return 2 * t.numel() * 4, t.numel() * (2 * (2 + 5 * nbins) + 1)
     if name == "nearest_valid_lohi":
         return 17 * t.numel(), 8 * t.numel()
+    if name == "median_blur":
+        # the map read once and written once; the network's min/max
+        from stereovision_tpu_torch.core import image as im
+
+        k = args[1] if len(args) > 1 else kw.get("ksize", 5)
+        return 8 * t.numel(), 2 * len(im._median_pairs(k * k)) * t.numel()
     if name == "sum_wta_fused":
         # four volumes read, the int16 sum (but for emit none) and five maps
         # written; about twelve operations a plane
@@ -460,7 +481,7 @@ def wrapper_of(sgm_cuda, kname):
 
 
 def plain_of(sgm_cuda, kname):
-    if kname in FULL_KERNELS:
+    if kname in NAMED_KERNELS:
         return getattr(sgm_cuda, f"{kname}_plain")
     return getattr(sgm_cuda, (KERNELS.get(kname) or SLICE3_KERNELS[kname])[2])
 
@@ -606,10 +627,92 @@ def wrapper_host_us(torch, sgm_cuda, n: int = 1000):
         "nearest_valid_lohi": lambda: sgm_cuda.nearest_valid_lohi(img, valid, img),
         "wta": lambda: sgm_cuda.wta(volf),
         "sum_wta": lambda: sgm_cuda.sum_wta_fused(vol8, vol8, vol8, vol8, emit="none"),
+        "median": lambda: sgm_cuda.median_blur(img, 5),
     }
     for f in forms.values():  # builds and loads each library before the clock
         f()
     return host_us(torch, forms, n)
+
+
+def median_row(torch, sgm_cuda, recorded, frame_ms, launches, errs):
+    """The median's row of the kernels line. Each recorded launch of the
+    production and the LR-on full frame, and the same maps with a third of
+    their pixels seeded with NaN of both signs, ±inf and ±0 at k = 3 and 5,
+    against the plain network on the card bit for bit; then each frame's
+    launches timed (events, host included; the device alone, one line a
+    shape) beside the byte bound, the network's floor at the card's min/max
+    rate and the plain network (events and the device alone), and the
+    host µs of one call of each on a small map."""
+    wname, (kname, src, replaces) = "median_blur", NAMED_KERNELS["median_blur"]
+    fn, plain = sgm_cuda.median_blur, sgm_cuda.median_blur_plain
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def replay(f, calls):
+        return lambda: [f(*a, **kw) for a, kw in calls]
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    special = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), 0.0, -0.0],
+                           device="cuda")
+    exact = 0
+    for path in ("production", "full_lr_on"):
+        calls = recorded[path][wname]
+        seeded = []
+        for a, _ in calls:
+            x = a[0].clone()
+            pick = torch.rand(x.shape, generator=gen, device="cuda") < 0.3
+            x[pick] = special[torch.randint(0, len(special), x.shape, generator=gen,
+                                            device="cuda")][pick]
+            seeded += [((x, k), {}) for k in sgm_cuda.MEDIAN_SIZES]
+        for a, kw in calls + seeded:
+            same = torch.equal(bits(fn(*a, **kw)), bits(plain(*a, **kw)))
+            check(same, f"the median differs from the plain network on {path} at "
+                        f"{tuple(a[0].shape)}, k={a[1] if len(a) > 1 else kw}")
+            exact += 1
+    print(f"parity median: {exact} launches bit-exact (the frames' and seeded maps of NaN, "
+          f"inf and signed zeros)")
+    timed = {}
+    for path in ("production", "full_lr_on"):
+        calls = recorded[path][wname]
+        groups = {}
+        for a, kw in calls:
+            groups.setdefault(tuple(a[0].shape), []).append((a, kw))
+        shapes = {}
+        for shape, g in groups.items():
+            g_dev = device_ms(replay(fn, g), f"median ({path}) at {shape}")
+            nb, ops = tally({wname: g})
+            shapes["x".join(map(str, shape))] = g_dev
+            print(f"kernel median ({path}) at {shape}: {len(g)} launch(es), device alone "
+                  f"{fmt(g_dev)}, bytes bound {nb / MEM_BYTES_PER_S * 1e3:.4f} ms, network "
+                  f"floor {ops / MINMAX_PER_S * 1e3:.4f} ms")
+        ms = cuda_ms(torch, replay(fn, calls), 20, warmup=3)
+        dev = device_ms(replay(fn, calls), f"median ({path})")
+        plain_ms = cuda_ms(torch, replay(plain, calls), 5)
+        plain_dev = device_ms(replay(plain, calls), f"the plain median ({path})")
+        nbytes, ops = tally({wname: calls})
+        b_ms, b_by = bound_ms(nbytes, ops)
+        floor = ops / MINMAX_PER_S * 1e3
+        print(f"kernel median ({path}): {ms:.4f} ms per frame ({len(calls)} launches), device "
+              f"alone {fmt(dev)}, bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} G operations), bytes alone "
+              f"{nbytes / MEM_BYTES_PER_S * 1e3:.4f} ms, network floor {floor:.4f} ms, plain "
+              f"{plain_ms:.3f} ms (device alone {fmt(plain_dev)}), "
+              f"{100 * ms / frame_ms[path]:.1f}% of the frame")
+        timed[path] = {"ms": ms, "device_ms": dev, "device_ms_by_shape": shapes,
+                       "plain_ms": plain_ms, "plain_device_ms": plain_dev, "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes_bound_ms": nbytes / MEM_BYTES_PER_S * 1e3,
+                       "network_floor_ms": floor, "launches": launches[path][kname]}
+    small = torch.zeros((8, 32), device="cuda")
+    host = host_us(torch, {"kernel": lambda: fn(small, 5), "plain": lambda: plain(small, 5)},
+                   200)
+    print(f"median host µs a call on an 8x32 map: kernel {host['kernel']:.2f}, plain network "
+          f"{host['plain']:.2f}")
+    return {"name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
+            **timed["production"], "max_abs_err": errs[wname], "parity": "exact (bits)",
+            "library_ms": None, "design": DESIGNS[kname], "host_us_forms": host,
+            "timed_as": "the production frame's launches, replayed on their inputs",
+            "full_launch": timed["full_lr_on"]}
 
 
 def wta_stats_host_us(torch, sgm_cuda, n: int = 1000):
@@ -671,7 +774,7 @@ def parallel_phases(torch, card: str):
     from stereovision_tpu_torch.ops import sgm_cuda
     from stereovision_tpu_torch.stereo import SGMParams, production_preset, sgm
 
-    names = list(KERNELS) + list(FULL_KERNELS) + ["aggregate_dir", "wta"]
+    names = list(KERNELS) + list(NAMED_KERNELS) + ["aggregate_dir", "wta"]
     targets = [(sgm_cuda, n) for n in names]
     p = SGMParams(num_disparities=D)
     mesh = parallel.make_mesh(frame=1, tile=TILES, devices=["cuda:0"] * TILES)
@@ -1444,7 +1547,7 @@ class plain_kernels:
         self.saved = {}
 
     def __enter__(self):
-        for name in (*KERNELS, *FULL_KERNELS):
+        for name in (*KERNELS, *NAMED_KERNELS):
             self.saved[name] = getattr(self.mod, name)
             setattr(self.mod, name, plain_of(self.mod, name))
         return self
@@ -1548,7 +1651,7 @@ def fused_phase(torch, card: str, cal, planes):
 
     # -- 12a. the frame's launches against their plain versions, counted ----
     run(pipe, range(2))
-    with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]) as rec:
+    with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *NAMED_KERNELS)]) as rec:
         run(pipe, [2])
         torch.cuda.synchronize()
     calls = {k: v for k, v in rec.calls.items() if v}
@@ -1557,7 +1660,7 @@ def fused_phase(torch, card: str, cal, planes):
     out = run(pipe, [3])
     torch.cuda.synchronize()
     counts = {k: n for k, n in sgm_cuda.launch_counts().items() if n}
-    recorded = {FULL_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
+    recorded = {NAMED_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
     print(f"launches in one fused frame: {counts}")
     for k in FUSED_KERNELS:
         check(counts.get(k, 0) > 0, f"fused: kernel {k} was not launched")
@@ -1971,7 +2074,7 @@ def mono_models_phase(torch, card: str, cal, planes):
                   f"fused {arch}: occlusion '{got['occlusion']}' / '{want['occlusion']}'")
             del twin, want
             torch.cuda.empty_cache()
-            with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]) as rec:
+            with Recorder(torch, [(sgm_cuda, n) for n in (*KERNELS, *NAMED_KERNELS)]) as rec:
                 run(pipe, [4])
                 torch.cuda.synchronize()
             calls = {k: v for k, v in rec.calls.items() if v}
@@ -1981,7 +2084,7 @@ def mono_models_phase(torch, card: str, cal, planes):
             out = run(pipe, [5])
             torch.cuda.synchronize()
             counts = {k: n for k, n in sgm_cuda.launch_counts().items() if n}
-            recorded = {FULL_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
+            recorded = {NAMED_KERNELS.get(k, (k,))[0]: len(v) for k, v in calls.items()}
             del calls
             print(f"launches in one fused frame with {arch}: {counts}")
             for k in FUSED_KERNELS:
@@ -2321,15 +2424,15 @@ def calib_sfm_phase(torch, card: str):
     # -- b. the calibrated DepthPipeline -------------------------------------
     left_p, right_p = plane_pair(rng)
     pipe = DepthPipeline(full, production_preset(), min_depth=0.2, max_depth=4.0)
-    with Recorder(torch, [(sgm_cuda, name) for name in KERNELS]) as rec:
+    with Recorder(torch, [(sgm_cuda, name) for name in (*KERNELS, "median_blur")]) as rec:
         pipe(left_p, right_p)
         torch.cuda.synchronize()
     parity(torch, sgm_cuda, rec.calls, "the calibrated production frame")
     sgm_cuda.reset_launch_counts()
     res = pipe(left_p, right_p)
     torch.cuda.synchronize()
-    launches = {k: sgm_cuda.launch_counts()[k] for k in KERNELS}
-    for k in KERNELS:
+    launches = {k: sgm_cuda.launch_counts()[k] for k in (*KERNELS, "median")}
+    for k in launches:
         check(launches[k] > 0, f"kernel {k} was not launched on the calibrated frame")
     core = (slice(H // 4, 3 * H // 4), slice(W // 4, 3 * W // 4))
     z = res.depth_m[core][res.confidence[core] > 0]
@@ -2444,7 +2547,7 @@ def serve_run(torch, serve, sgm_cuda, argv, requests, probes=None, clock=None):
 
     probes, probed = probes or {}, {}
     dispatch = serve._Server.dispatch
-    targets = [(sgm_cuda, name) for name in (*KERNELS, *FULL_KERNELS)]
+    targets = [(sgm_cuda, name) for name in (*KERNELS, *NAMED_KERNELS)]
 
     def probing(self, req):
         kind = probes.get(req.get("id"))
@@ -3020,7 +3123,7 @@ def quality_phase(torch, card: str):
     from stereovision_tpu_torch.stereo.eval import evaluate_disparity
 
     t_phase = time.perf_counter()
-    targets = [(sgm_cuda, n) for n in (*KERNELS, *FULL_KERNELS)]
+    targets = [(sgm_cuda, n) for n in (*KERNELS, *NAMED_KERNELS)]
     launches, rows = {}, []
     for scene, render in eval_quality.SCENES.items():
         left, right, gt, gt_valid = render(np.random.default_rng(42), H, W, D)
@@ -3178,10 +3281,10 @@ def main() -> int:
              for name, (p, _, _) in paths.items()}
 
     # -- 3. every kernel launch of one frame of each path against its plain version
-    kernel_targets = [(sgm_cuda, name) for name in (*KERNELS, *FULL_KERNELS)]
+    kernel_targets = [(sgm_cuda, name) for name in (*KERNELS, *NAMED_KERNELS)]
     stage_targets = [({"im": im, "sgm": sgm, "sgm_cuda": sgm_cuda}[m], n)
                      for m, names in STAGES.items() for n in names
-                     if n not in FULL_KERNELS]  # recorded as kernels already
+                     if n not in NAMED_KERNELS]  # recorded as kernels already
     recorded = {}
     for name, (_, (left_np, right_np), _) in paths.items():
         targets = kernel_targets + (stage_targets if name in ("production", "full_lr_on") else [])
@@ -3190,7 +3293,7 @@ def main() -> int:
             torch.cuda.synchronize()
         recorded[name] = rec.calls
     errs = {k: max(parity(torch, sgm_cuda, {k: calls[k]}, path)
-                   for path, calls in recorded.items()) for k in (*KERNELS, *FULL_KERNELS)}
+                   for path, calls in recorded.items()) for k in (*KERNELS, *NAMED_KERNELS)}
     # the full search's four volumes: one fused launch a frame, with the
     # summed volume only for the LR check
     for name, emit in (("full_lr_off", "none"), ("full_lr_on", "hwd")):
@@ -3225,6 +3328,9 @@ def main() -> int:
         print(f"launches in one {name} frame: {launches[name]}")
         for k in must:
             check(launches[name][k] > 0, f"kernel {k} was not launched on the {name} path")
+        check(launches[name]["median"] == MEDIAN_LAUNCHES[name],
+              f"{name}: {launches[name]['median']} median launches, not "
+              f"{MEDIAN_LAUNCHES[name]}")
         check(not plain_sum.calls["sum_wta"], f"the plain sum_wta ran on the {name} path")
         if name != "production":
             check(launches[name]["sum_wta"] == 1,
@@ -3370,29 +3476,31 @@ def main() -> int:
                            "library_device_ms": library_dev}
     check(len(rows) == len(KERNELS), "a kernel did not launch on the production path")
     next(r for r in rows if r["name"] == "shift_gather")["lr_on_full_launch"] = lr_full
-    for wname, (kname, src, replaces) in FULL_KERNELS.items():
-        fn, plain = getattr(sgm_cuda, wname), plain_of(sgm_cuda, wname)
-        timed = {}
-        for path in ("full_lr_on", "full_lr_off"):
-            calls = recorded[path][wname]
-            ms = cuda_ms(torch, replay(fn, calls), 20, warmup=3)
-            dev = device_ms(replay(fn, calls), f"{kname} ({path})")
-            plain_ms = cuda_ms(torch, replay(plain, calls), 2)
-            nbytes, ops = tally({wname: calls})
-            b_ms, b_by = bound_ms(nbytes, ops)
-            print(f"kernel {kname} ({path}): {ms:.4f} ms per frame ({len(calls)} launch, emit "
-                  f"{calls[0][1].get('emit')}), device alone {fmt(dev)}, bound {b_ms:.4f} ms "
-                  f"({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), plain "
-                  f"{plain_ms:.2f} ms, {100 * ms / frame_ms[path]:.1f}% of the frame")
-            timed[path] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "launches": launches[path][kname]}
-        rows.append({
-            "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
-            **timed["full_lr_on"], "max_abs_err": errs[wname], "parity": "exact",
-            "library_ms": None, "design": DESIGNS[kname],
-            "timed_as": "the LR-on full search's launch (emit hwd), replayed on its inputs",
-            "lr_off_full_launch": timed["full_lr_off"],
-        })
+    wname = "sum_wta_fused"
+    kname, src, replaces = NAMED_KERNELS[wname]
+    fn, plain = getattr(sgm_cuda, wname), plain_of(sgm_cuda, wname)
+    timed = {}
+    for path in ("full_lr_on", "full_lr_off"):
+        calls = recorded[path][wname]
+        ms = cuda_ms(torch, replay(fn, calls), 20, warmup=3)
+        dev = device_ms(replay(fn, calls), f"{kname} ({path})")
+        plain_ms = cuda_ms(torch, replay(plain, calls), 2)
+        nbytes, ops = tally({wname: calls})
+        b_ms, b_by = bound_ms(nbytes, ops)
+        print(f"kernel {kname} ({path}): {ms:.4f} ms per frame ({len(calls)} launch, emit "
+              f"{calls[0][1].get('emit')}), device alone {fmt(dev)}, bound {b_ms:.4f} ms "
+              f"({b_by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G operations), plain "
+              f"{plain_ms:.2f} ms, {100 * ms / frame_ms[path]:.1f}% of the frame")
+        timed[path] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "launches": launches[path][kname]}
+    rows.append({
+        "name": kname, "route": "cuda", "source": f"{SOURCES}/{src}", "replaces": replaces,
+        **timed["full_lr_on"], "max_abs_err": errs[wname], "parity": "exact",
+        "library_ms": None, "design": DESIGNS[kname],
+        "timed_as": "the LR-on full search's launch (emit hwd), replayed on its inputs",
+        "lr_off_full_launch": timed["full_lr_off"],
+    })
+    rows.append(median_row(torch, sgm_cuda, recorded, frame_ms, launches, errs))
     redesigned = {k: prod[k] for k in ("census_words", "cost_volume", "wta_stats_from_duals",
                                         "speckle_counts", "right_disparity",
                                         "nearest_valid_lohi")}
@@ -3416,7 +3524,7 @@ def main() -> int:
     rows += script_rows
     next(r for r in rows if r["name"] == "sum_wta")["script_device_ms"] = sum_script["sum_wta"]
     for kname, ab in redesign_phase(torch, card, redesigned).items():
-        kname = FULL_KERNELS.get(kname, (kname,))[0]
+        kname = NAMED_KERNELS.get(kname, (kname,))[0]
         next(r for r in rows if r["name"] == kname)["earlier_design_ab"] = ab
     del redesigned
     torch.cuda.empty_cache()
@@ -3442,7 +3550,7 @@ def main() -> int:
         r["calibrated_frame_launches"] = calibrated.get(r["name"], 0)
         r["served_launches"] = {mode: n.get(r["name"], 0) for mode, n in served.items()}
         r["quality_boxes_launches"] = {mode: n.get(r["name"], 0) for mode, n in quality.items()}
-    check(len(rows) == len(KERNELS) + len(FULL_KERNELS) + len(SLICE3_KERNELS)
+    check(len(rows) == len(KERNELS) + len(NAMED_KERNELS) + len(SLICE3_KERNELS)
           + len(SLICE4_KERNELS), "a kernel row is missing")
     for r in rows:  # host µs of one launch through the wrapper, on a tiny input
         r["host_us"] = host["wrappers"].get(r["name"])

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 KERNELS = ("census", "cost", "aggregate", "wta_stats", "right_disparity", "shift_gather",
-           "speckle", "nearest_lohi", "aggregate_dir", "wta", "sum_wta")
+           "speckle", "nearest_lohi", "aggregate_dir", "wta", "sum_wta", "median")
 # variant library → the shipping source it is built from, with -DSVT_VARIANTS
 VARIANTS = {"aggregate_variants": "aggregate", "wta_stats_variants": "wta_stats",
             "right_disparity_variants": "right_disparity", "census_variants": "census",

@@ -1,6 +1,6 @@
 """CUDA kernels of the SGM engine, each beside its plain version.
 
-Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Eleven kernels,
+Counterpart of ``stereovision_tpu/ops/sgm_pallas.py``. Twelve kernels,
 written by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
 
 - :func:`census_words`         ← ``sgm_pallas.census_words``
@@ -17,6 +17,11 @@ written by hand for Hopper (``csrc/*.cu``, built by :mod:`._build`):
   (``make_pallas``): the four path volumes of a full search summed, their
   winner statistics and the int16 sum, in one read of each volume; counted
   as ``sum_wta``
+- :func:`median_blur`          ← no ``pallas_call``: ``core.image.median_blur``'s
+  network (the JAX package's median is plain ``jnp``, which XLA fuses on a
+  TPU), as one launch in place of a 25-view stack and 226 ``minimum``/
+  ``maximum`` launches; bound by bytes (7.4 MB, ~2.2 µs at 720p), its
+  network's 0.21 G min/max above that; counted as ``median``
 
 ``sum_wta`` and ``st_from_duals`` are XLA code in the reference and plain
 PyTorch here: the engine calls ``sum_wta`` only for the horizontal pair
@@ -73,6 +78,7 @@ _SIGNATURES = {
     "nearest_lohi": ("svt_nearest_valid_lohi", (_P,) * 5 + (_I,) * 4 + (_P,)),
     "wta": ("svt_wta", (_P, _P, _P, _P, _P, _P, _L, _I, _P)),
     "sum_wta": ("svt_sum_wta", (_P,) * 10 + (_L,) + (_I,) * 6 + (_P,)),
+    "median": ("svt_median_blur", (_P, _P, _I, _I, _I, _P)),
 }
 _fns: dict = {}
 _launches: dict[str, int] = {}
@@ -966,10 +972,43 @@ def wta(agg: torch.Tensor):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# Median filter
+# ---------------------------------------------------------------------------
+
+MEDIAN_SIZES = (3, 5)  # the windows csrc/median.cu takes
+
+
+def median_blur_plain(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """The k×k median with replicate borders: :func:`core.image.median_blur`,
+    the pruned Batcher network of ``minimum``/``maximum`` over the k² shifted
+    views."""
+    return im.median_blur(img, ksize)
+
+
+def median_blur(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """(H, W) float32 map → its k×k median with replicate borders, k in
+    :data:`MEDIAN_SIZES`: :func:`median_blur_plain`'s network in one launch,
+    equal to it bit for bit (NaN, ±inf and ±0 included)."""
+    if img.device.type == "cpu":
+        return median_blur_plain(img, ksize)
+    if ksize not in MEDIAN_SIZES:
+        raise ValueError(f"ksize must be one of {MEDIAN_SIZES} on a card, got {ksize}")
+    _check(img, "img", torch.float32, 2)
+    H, W = img.shape
+    out = torch.empty_like(img)
+    _launch("median", img.device, img.data_ptr(), out.data_ptr(), H, W, ksize)
+    _launches["median"] += 1
+    return out
+
+
 KERNEL_WRAPPERS = (census_words, cost_volume, aggregate_dir, aggregate_dual,
                    wta_stats_from_duals, right_disparity, shift_gather, speckle_counts,
-                   nearest_valid_lohi, wta, sum_wta_fused)
-# launch counts: one per wrapper, by its name but sum_wta_fused's, which
-# counts as its kernel (csrc/sum_wta.cu); aggregate_dual's chain mode apart
-COUNTS = tuple(f.__name__ for f in KERNEL_WRAPPERS[:-1]) + ("sum_wta", "aggregate_dual_chain")
+                   nearest_valid_lohi, wta, sum_wta_fused, median_blur)
+# launch counts: one per wrapper, by its name but sum_wta_fused's and
+# median_blur's, which count as their kernels (csrc/sum_wta.cu,
+# csrc/median.cu); aggregate_dual's chain mode apart
+_COUNTED_AS = {"sum_wta_fused": "sum_wta", "median_blur": "median"}
+COUNTS = tuple(_COUNTED_AS.get(f.__name__, f.__name__) for f in KERNEL_WRAPPERS) + (
+    "aggregate_dual_chain",)
 reset_launch_counts()

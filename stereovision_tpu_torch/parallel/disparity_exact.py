@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import torch
 
-from stereovision_tpu_torch.core import image as im
 from stereovision_tpu_torch.ops import sgm_cuda
 from stereovision_tpu_torch.parallel.disparity import _gather, _scatter, _speckle_radius
 from stereovision_tpu_torch.parallel.mesh import Mesh, halo_exchange, ppermute
@@ -150,7 +149,7 @@ def _finish(selected, p: sgm.SGMParams, halo: int, impl: str, axis=None):
             continue
         valid = sgm._speckle_suppress(disp, valid, p, impl)
         if p.median_ksize > 1:
-            disp = im.median_blur(disp, p.median_ksize)
+            disp = sgm._median(disp, p.median_ksize, impl)
         disp = torch.where(valid, disp, float(p.min_disparity) - 1.0)
         out.append((disp[halo:-halo], valid[halo:-halo]))
     return out

@@ -304,6 +304,15 @@ def _speckle_suppress(disp, valid, p: SGMParams, impl: str):
         return valid & (count >= min_count)
 
 
+def _median(img, ksize: int, impl: str):
+    """The k×k median with replicate borders: the kernel
+    (``sgm_cuda.median_blur``) on a card, the plain network under
+    ``impl="xla"`` or on the CPU; the two are equal bit for bit."""
+    if impl == "xla":
+        return sgm_cuda.median_blur_plain(img, ksize)
+    return sgm_cuda.median_blur(img, ksize)
+
+
 # ---------------------------------------------------------------------------
 # The search: census → cost → aggregation → WTA → LR check
 # ---------------------------------------------------------------------------
@@ -469,7 +478,7 @@ def _compute_full(left, right, p: SGMParams, cl_pre=None, cr_pre=None):
     valid = _speckle_suppress(disp, valid, p, impl)
     if p.median_ksize > 1:
         with annotate("sgm.median"):
-            disp = im.median_blur(disp, p.median_ksize)
+            disp = _median(disp, p.median_ksize, impl)
     disp = torch.where(valid, disp, float(p.min_disparity) - 1.0)
     return disp, valid, best
 
@@ -587,7 +596,7 @@ def _compute_disparity_hier(left, right, p: SGMParams):
         return disp, torch.ones_like(valid)
     if p.median_ksize > 1:
         with annotate("sgm.median"):
-            disp = im.median_blur(torch.where(valid, disp, d_up_c), p.median_ksize)
+            disp = _median(torch.where(valid, disp, d_up_c), p.median_ksize, impl)
     disp = torch.where(valid, disp, float(p.min_disparity) - 1.0)
     return disp, valid
 
@@ -615,7 +624,7 @@ def _coarse_disparity(left, right, p: SGMParams):
     fill = torch.where(has_l & has_r, med3,
                        torch.where(has_l, dl, torch.where(has_r, dr, fill_g)))
     with annotate("sgm.median"):
-        disp_c = im.median_blur(torch.where(valid_c, disp_c, fill), 5)
+        disp_c = _median(torch.where(valid_c, disp_c, fill), 5, _resolve_impl(p.impl))
     # the exact column ratio (1280/426 = 3.005), not s
     return im.resize(disp_c, (H, W)) * (W / (W // s))
 
@@ -750,8 +759,8 @@ def _census_fill(disp, valid, d_up, cl, cr, p: SGMParams, impl: str, median_all:
             best_cd = torch.where(take, cdv, best_cd)
     filled = torch.where(valid, disp, best_v)
     if median_all:
-        return im.median_blur(filled, p.median_ksize) if p.median_ksize > 1 else filled
-    return torch.where(valid, disp, im.median_blur(filled, 5))
+        return _median(filled, p.median_ksize, impl) if p.median_ksize > 1 else filled
+    return torch.where(valid, disp, _median(filled, 5, impl))
 
 
 def _nearest4_fill(disp, valid, p: SGMParams):
@@ -768,7 +777,7 @@ def _nearest4_fill(disp, valid, p: SGMParams):
             best_val = torch.where(take, val, best_val)
             best_dist = torch.where(take, dist, best_dist)
     filled = torch.where(valid, disp, best_val)
-    return torch.where(valid, disp, im.median_blur(filled, 5))
+    return torch.where(valid, disp, _median(filled, 5, _resolve_impl(p.impl)))
 
 
 def _ramp(shift, p: SGMParams):

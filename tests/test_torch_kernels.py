@@ -1,4 +1,4 @@
-"""The port's eleven kernels (stereovision_tpu_torch.ops.sgm_cuda).
+"""The port's twelve kernels (stereovision_tpu_torch.ops.sgm_cuda).
 
 On the CPU: each plain version is held exactly against the JAX package's
 Pallas kernel run in interpret mode on the same numpy inputs (real lanes
@@ -11,6 +11,8 @@ in ``tests/test_torch_scripts.py``). On a card (marked ``cuda``, skipped
 elsewhere): each CUDA kernel is held exactly against its plain version, the
 measurement variants too, at ragged shapes.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -283,13 +285,14 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     s = sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=1)
     sgm_cuda.wta(sgm_cuda.aggregate_dir(cost.float(), 8.0, 96.0, axis=0, acc=s))
     sgm_cuda.sum_wta_fused(hf, hb, hf, hb)
+    sgm_cuda.median_blur(dv, 5)
     # the measurement kernels of bench_cuda count in the same dict
     assert sgm_cuda.launch_counts() == {name: 0 for name in (*sgm_cuda.COUNTS,
                                                              *bench_cuda.COUNTS)}
-    assert len(sgm_cuda.KERNEL_WRAPPERS) == 11
-    # sum_wta_fused counts under its kernel's name
-    assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS[:-1]} | {
-        "sum_wta", "aggregate_dual_chain"}
+    assert len(sgm_cuda.KERNEL_WRAPPERS) == 12
+    # sum_wta_fused and median_blur count under their kernels' names
+    assert set(sgm_cuda.COUNTS) == {f.__name__ for f in sgm_cuda.KERNEL_WRAPPERS[:-2]} | {
+        "sum_wta", "median", "aggregate_dual_chain"}
 
 
 def test_census_design_templates_the_engine_windows():
@@ -1542,3 +1545,182 @@ def test_remap_separable_runs_shift_gather(cuda, H, W, monkeypatch):
     assert sgm_cuda.launch_counts()["shift_gather"] == 4
     monkeypatch.setattr(sgm_cuda, "shift_gather", sgm_cuda.shift_gather_plain)
     assert torch.equal(got, im.remap_separable(*args, rx, ry))
+
+
+# ---------------------------------------------------------------------------
+# The median filter
+# ---------------------------------------------------------------------------
+
+# the kinds of map the median is held on: random floats; NaN of both signs,
+# ±inf and ±0 among them; plateaus of a few values (ties everywhere)
+MEDIAN_KINDS = ("random", "special", "plateau")
+
+
+def _median_input(kind: str, h: int, w: int) -> np.ndarray:
+    img = RNG.uniform(-300, 300, size=(h, w)).astype(np.float32)
+    if kind == "special":
+        special = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32)
+        pick = RNG.uniform(size=(h, w)) < 0.3
+        img[pick] = RNG.choice(special, size=int(pick.sum()))
+    elif kind == "plateau":
+        img = np.array([-1.0, 0.0, -0.0, 40.0], np.float32)[
+            np.repeat(RNG.integers(0, 4, size=(h, w // 8 + 1)), 8, axis=1)[:, :w]]
+    return img
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 map's bits: NaN payloads and signed zeros compared too."""
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("kind", MEDIAN_KINDS)
+@pytest.mark.parametrize("shape", [(37, 150), (1, 1), (1, 9), (9, 1), (2, 3), (4, 2)])
+def test_median_blur_on_the_cpu_is_the_plain_network(k, kind, shape):
+    img = torch.from_numpy(_median_input(kind, *shape))
+    before = sgm_cuda.launch_counts()
+    out = sgm_cuda.median_blur(img, k)
+    assert out.dtype == torch.float32 and out.shape == shape
+    assert torch.equal(_bits(out), _bits(sgm_cuda.median_blur_plain(img, k)))
+    assert sgm_cuda.launch_counts() == before
+
+
+@pytest.mark.parametrize("n,pairs", [(9, 24), (25, 113)])
+def test_median_kernel_bakes_the_plain_network(n, pairs):
+    """The compare-exchanges of ``csrc/median.cu`` are
+    ``core.image._median_pairs(n)``, in order: the kernel and the plain
+    network cannot drift apart."""
+    from stereovision_tpu_torch.core import image as im
+
+    src = (_build.CSRC / "median.cu").read_text()
+    body = re.search(rf"#define SVT_MEDIAN_PAIRS_{n}\(X\)((?:[^\n]*\\\n)*[^\n]*)", src)
+    baked = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", body.group(1)))
+    assert baked == im._median_pairs(n)
+    assert len(baked) == pairs
+    assert set(sgm_cuda.MEDIAN_SIZES) == {3, 5} and "median" in _build.KERNELS
+
+
+def _rig(w: int, h: int, f: float = 700.0, tx: float = -6.0) -> dict:
+    """An identity-rectified rig: focal length f px, baseline tx cm along x."""
+    K = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1]])
+    P2 = np.hstack([K, np.zeros((3, 1))])
+    P2[0, 3] = tx * f
+    return {"mtx_left": K, "mtx_right": K, "dist_left": np.zeros(5),
+            "dist_right": np.zeros(5), "R": np.eye(3), "T": np.array([[tx], [0.0], [0.0]]),
+            "R1": np.eye(3), "R2": np.eye(3), "P1": np.hstack([K, np.zeros((3, 1))]),
+            "P2": P2, "img_size": np.array([w, h])}
+
+
+def _median_frame_params(mode: str):
+    import dataclasses
+
+    from stereovision_tpu_torch.stereo import SGMParams, production_preset
+
+    if mode.startswith("production"):
+        return dataclasses.replace(production_preset(), num_disparities=64)
+    return SGMParams(num_disparities=32, impl="xla" if mode == "full-xla" else "auto")
+
+
+@pytest.mark.parametrize("mode,h,w,calls", [
+    ("production-stacked", 48, 192, 3), ("production-two-passes", 40, 192, 3),
+    ("full", 48, 128, 1), ("full-xla", 48, 128, 0)])
+def test_depth_frames_send_each_median_to_the_wrapper(monkeypatch, mode, h, w, calls):
+    """A production frame takes three medians through ``sgm_cuda.median_blur``
+    (the coarse search's, the coarse fill's, the fill's), a full-search frame
+    one, ``impl="xla"`` none (the plain network): each a contiguous (H, W)
+    float32 map at a size the kernel takes, as a card's launch needs. The
+    frame equals the one whose medians all run the plain network."""
+    from stereovision_tpu_torch.pipeline import DepthPipeline
+
+    seen = []
+    wrapper = sgm_cuda.median_blur
+
+    def spy(img, ksize=5):
+        seen.append((img.dim(), img.dtype, img.is_contiguous(), ksize))
+        return wrapper(img, ksize)
+
+    base = RNG.integers(0, 256, (h, w + 6), dtype=np.uint8)
+    left, right = np.ascontiguousarray(base[:, 6:]), np.ascontiguousarray(base[:, :w])
+    pipe = DepthPipeline(_rig(w, h), _median_frame_params(mode), device="cpu")
+    monkeypatch.setattr(sgm_cuda, "median_blur", spy)
+    got = pipe(left, right)
+    assert len(seen) == calls
+    assert all(c[:3] == (2, torch.float32, True) and c[3] in sgm_cuda.MEDIAN_SIZES
+               for c in seen)
+    monkeypatch.setattr(sgm_cuda, "median_blur", sgm_cuda.median_blur_plain)
+    want = pipe(left, right)
+    assert torch.equal(got.disparity, want.disparity)
+    assert torch.equal(got.confidence, want.confidence)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("kind", MEDIAN_KINDS)
+@pytest.mark.parametrize("shape", [(720, 1280), (240, 426)])
+def test_median_blur_kernel(cuda, k, kind, shape):
+    """The kernel at the production frame's shapes equals the plain network
+    on the card bit for bit, and counts one launch a call."""
+    img = torch.from_numpy(_median_input(kind, *shape)).to(cuda)
+    before = sgm_cuda.launch_counts()["median"]
+    out = sgm_cuda.median_blur(img, k)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["median"] == before + 1
+    assert out.shape == shape and out.dtype == torch.float32
+    assert torch.equal(_bits(out), _bits(sgm_cuda.median_blur_plain(img, k)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("kind", MEDIAN_KINDS)
+@pytest.mark.parametrize("shape", [(1, 1), (1, 1280), (720, 1), (2, 3), (4, 2), (3, 5), (5, 3),
+                                   (17, 33), (1100000, 1)])
+def test_median_blur_kernel_narrow_and_ragged(cuda, k, kind, shape):
+    """Maps narrower than the window (replicate borders on both sides of a
+    single row or column), tiles cut by the edges, and a column of more
+    rows than the grid holds (the blocks walk the rest)."""
+    img = torch.from_numpy(_median_input(kind, *shape)).to(cuda)
+    out = sgm_cuda.median_blur(img, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(sgm_cuda.median_blur_plain(img, k)))
+
+
+@pytest.mark.cuda
+def test_median_blur_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((8, 10), device=cuda)
+    before = sgm_cuda.launch_counts()
+    for bad in (x.t(), x[:, ::2], x[None]):
+        with pytest.raises(ValueError):
+            sgm_cuda.median_blur(bad, 5)
+    with pytest.raises(ValueError):
+        sgm_cuda.median_blur(x, 7)
+    with pytest.raises(TypeError):
+        sgm_cuda.median_blur(x.double(), 5)
+    assert sgm_cuda.launch_counts() == before
+    assert sgm_cuda.median_blur(torch.zeros((0, 10), device=cuda), 5).shape == (0, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,launches", [("production", 3), ("full", 1)])
+def test_depth_frames_launch_the_median(cuda, monkeypatch, mode, launches):
+    """A 720p production frame through ``DepthPipeline`` launches the median
+    three times, a full-search frame once; the frame equals the one whose
+    medians run the plain network on the card, bit for bit."""
+    from stereovision_tpu_torch.pipeline import DepthPipeline
+
+    h, w = 720, 1280
+    base = RNG.integers(0, 256, (h, w + 40), dtype=np.uint8)
+    left, right = np.ascontiguousarray(base[:, 40:]), np.ascontiguousarray(base[:, :w])
+    from stereovision_tpu_torch.stereo import SGMParams, production_preset
+
+    params = production_preset() if mode == "production" else SGMParams(num_disparities=320)
+    pipe = DepthPipeline(_rig(w, h), params)
+    pipe(left, right)  # builds the libraries
+    sgm_cuda.reset_launch_counts()
+    got = pipe(left, right)
+    torch.cuda.synchronize()
+    assert sgm_cuda.launch_counts()["median"] == launches
+    monkeypatch.setattr(sgm_cuda, "median_blur", sgm_cuda.median_blur_plain)
+    want = pipe(left, right)
+    for a, b in zip((got.disparity, got.confidence, got.depth_m),
+                    (want.disparity, want.confidence, want.depth_m)):
+        assert torch.equal(_bits(a), _bits(b))
