@@ -4,7 +4,11 @@ counterpart of ``stereovision_tpu.apps.mono_ai`` with its flags plus
 ``--device``.
 
     python -m stereovision_tpu_torch.apps.mono_ai --images frames/ --out mono_ai_out \\
-        [--arch small|midas_v21_small|dpt_large] [--checkpoint hub.pt]
+        [--arch small|midas_v21_small|dpt_large] [--checkpoint hub.pt] [--net-hw H W]
+
+``--net-hw`` is the network's input size (256 256 by default, the
+reference's); DPT-Large at the MiDaS hub's size for a 1280x720 frame is
+``--arch dpt_large --net-hw 384 672``.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ def main(argv=None):
                     choices=("small", "midas_v21_small", "dpt_large"))
     ap.add_argument("--checkpoint", default=None,
                     help="hub-format torch .pt state_dict for midas_v21_small/dpt_large")
+    ap.add_argument("--net-hw", type=int, nargs=2, default=(256, 256), metavar=("H", "W"),
+                    help="the network's input height and width (default 256 256)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     require("stereovision_tpu_torch.apps.mono_ai", "imageio", "matplotlib")
@@ -38,26 +44,28 @@ def main(argv=None):
     from stereovision_tpu_torch.io.frames import _imread_bgr
     from stereovision_tpu_torch.mono import nn as mnn
 
-    model = mnn.create_model(arch=args.arch, torch_state_dict=args.checkpoint, device=args.device)
+    net_hw = tuple(args.net_hw)
+    model = mnn.create_model(arch=args.arch, torch_state_dict=args.checkpoint, device=args.device,
+                             net_hw=net_hw)
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     files = sorted(p for p in Path(args.images).iterdir() if fnmatch.fnmatch(p.name, args.glob))
     for i, p in enumerate(files):
-        vis = frame_view(model, _imread_bgr(p), args.device)
+        vis = frame_view(model, _imread_bgr(p), args.device, net_hw)
         iio.imwrite(out_dir / f"depth_{i:04d}.png", vis.to(torch.uint8).cpu().numpy())
         print(f"{p.name} → depth_{i:04d}.png")
     return 0
 
 
-def frame_view(model, frame_bgr: np.ndarray, device):
-    """One frame's work: ``estimate_depth``, then the inverted depth
+def frame_view(model, frame_bgr: np.ndarray, device, net_hw=(256, 256)):
+    """One frame's work: ``estimate_depth`` at ``net_hw``, then the inverted depth
     through the TURBO colormap, as RGB float32 (H, W, 3) on ``device``."""
     import torch
 
     from stereovision_tpu_torch.core import image as im
     from stereovision_tpu_torch.mono.nn import estimate_depth
 
-    depth, _ = estimate_depth(model, frame_bgr, device=device)
+    depth, _ = estimate_depth(model, frame_bgr, net_hw=net_hw, device=device)
     return im.apply_colormap((255 - depth).to(torch.uint8), "turbo", bgr=False)
 
 

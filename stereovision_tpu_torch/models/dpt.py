@@ -24,6 +24,7 @@ with the same structure.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -33,6 +34,7 @@ from torch import nn
 
 from stereovision_tpu_torch.models.midas_v21 import (FeatureFusion, check_state_dict,
                                                      manifest_of, output_head, seeded)
+from stereovision_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +158,24 @@ def resize_pos_embed(pos_embed: torch.Tensor, grid_hw, native_grid: int) -> torc
     return torch.cat([pos_embed[:, :1], grid.permute(0, 2, 3, 1).reshape(1, gh * gw, C)], dim=1)
 
 
+@contextlib.contextmanager
+def _cudnn_off():
+    """cuDNN off inside (PyTorch's own im2col and GEMM run each
+    convolution), its other settings untouched. In float32 cuDNN's
+    heuristic picks, at some input sizes, an FFT algorithm for the head's
+    3×3 convolution: 257.6 ms and a 17.5 GB workspace at 384×384 on an
+    H100, against 0.81 ms and 0.36 GB with cuDNN off; and slow algorithms
+    for the many-channel convolutions on small maps (the 3×3/2 resampling
+    of the last tap and ``layer4_rn``: 0.33 and 0.23 ms against 0.14 and
+    0.07). im2col's buffer is bounded: in·k²·out_h·out_w values."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
 class DPTDepth(nn.Module):
     """(B, H, W, 3) RGB in [0, 1] → (B, H, W) non-negative relative inverse
     depth. H and W must be multiples of 2·patch_size. The hub transform's
@@ -177,34 +197,44 @@ class DPTDepth(nn.Module):
             setattr(self.scratch, f"refinenet{i}", FeatureFusion(f, f))
         self.scratch.output_conv = output_head(f)
 
+    @_cudnn_off()
     def forward(self, x):
+        """Spans (``utils.profiling.annotate``): ``dpt.embed`` (the patch
+        embedding, the cls token and the position embedding),
+        ``dpt.blocks`` (the transformer blocks), ``dpt.reassemble`` (the
+        readouts, the resampling and the ``layerN_rn`` convolutions),
+        ``dpt.fusion`` (the four fusion blocks) and ``dpt.head``. Every
+        convolution runs with cuDNN off (:func:`_cudnn_off`)."""
         cfg = self.cfg
         P = cfg.patch_size
         B, H, W, _ = x.shape
         if H % (2 * P) or W % (2 * P):
             raise ValueError(f"DPTDepth takes H and W multiples of {2 * P}, got {(H, W)}")
         gh, gw = H // P, W // P
-        m = self.pretrained.model
-        h = m.patch_embed.proj(((x - 0.5) / 0.5).permute(0, 3, 1, 2))
-        h = torch.cat([m.cls_token.expand(B, -1, -1), h.flatten(2).transpose(1, 2)], dim=1)
-        h = h + resize_pos_embed(m.pos_embed, (gh, gw), cfg.img_size // P)
+        m, s = self.pretrained.model, self.scratch
+        with annotate("dpt.embed"):
+            h = m.patch_embed.proj(((x - 0.5) / 0.5).permute(0, 3, 1, 2))
+            h = torch.cat([m.cls_token.expand(B, -1, -1), h.flatten(2).transpose(1, 2)], dim=1)
+            h = h + resize_pos_embed(m.pos_embed, (gh, gw), cfg.img_size // P)
         taps = []
-        for i, block in enumerate(m.blocks):
-            h = block(h)
-            if i in cfg.hooks:
-                taps.append(h)
-        layers = []
-        for idx, a in enumerate(taps):
-            seq = getattr(self.pretrained, f"act_postprocess{idx + 1}")
-            v = seq[0](a).transpose(1, 2).reshape(B, cfg.embed_dim, gh, gw)
-            layers.append(seq[4](seq[3](v)))
-        s = self.scratch
-        rn = [getattr(s, f"layer{i + 1}_rn")(layers[i]) for i in range(4)]
-        path = s.refinenet4(rn[3])
-        path = s.refinenet3(path, rn[2])
-        path = s.refinenet2(path, rn[1])
-        path = s.refinenet1(path, rn[0])
-        return s.output_conv(path)[:, 0]
+        with annotate("dpt.blocks"):
+            for i, block in enumerate(m.blocks):
+                h = block(h)
+                if i in cfg.hooks:
+                    taps.append(h)
+        with annotate("dpt.reassemble"):
+            rn = []
+            for idx, a in enumerate(taps):
+                seq = getattr(self.pretrained, f"act_postprocess{idx + 1}")
+                v = seq[0](a).transpose(1, 2).reshape(B, cfg.embed_dim, gh, gw)
+                rn.append(getattr(s, f"layer{idx + 1}_rn")(seq[4](seq[3](v))))
+        with annotate("dpt.fusion"):
+            path = s.refinenet4(rn[3])
+            path = s.refinenet3(path, rn[2])
+            path = s.refinenet2(path, rn[1])
+            path = s.refinenet1(path, rn[0])
+        with annotate("dpt.head"):
+            return s.output_conv(path)[:, 0]
 
 
 @functools.lru_cache(maxsize=None)

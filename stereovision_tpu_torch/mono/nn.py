@@ -8,6 +8,7 @@ confidence = the normalized |gray − GaussianBlur(gray, 5)| local contrast.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from pathlib import Path
 
@@ -17,6 +18,7 @@ import torch
 from stereovision_tpu_torch.core import image as im
 from stereovision_tpu_torch.models.midas import MidasSmall
 from stereovision_tpu_torch.utils.backend import resolve_device
+from stereovision_tpu_torch.utils.profiling import annotate
 
 # the bundled synthetic-pretrained weights, a flax checkpoint in the JAX
 # package's data, read by path
@@ -96,18 +98,29 @@ def create_model(arch: str = "small", pretrained: bool = True, device="cuda", se
 
 def estimate_depth(model: torch.nn.Module, frame_bgr, net_hw=(256, 256), device="cuda"):
     """(H, W, 3) BGR frame (uint8 or float, 0-255) → (depth_norm [0, 255]
-    (H, W), conf [0, 1] (H, W)) on ``device``, where ``model`` must be."""
+    (H, W), conf [0, 1] (H, W)) on ``device``, where ``model`` must be.
+    ``net_hw`` is the network's input size; it need not be square.
+
+    Spans (``utils.profiling.annotate``): ``mono.upload`` (a host frame
+    copied up in its own dtype, a blocking ``sync.upload``), ``mono.resize``
+    (to RGB in [0, 1] at ``net_hw``), ``mono.net`` (the forward) and
+    ``mono.post`` (the resize back, the normalisation and the
+    confidence)."""
     dev = resolve_device(device)
-    if isinstance(frame_bgr, np.ndarray):  # a reversed view (img[..., ::-1]) has negative strides
-        frame_bgr = np.ascontiguousarray(frame_bgr)
-    frame = torch.as_tensor(frame_bgr, dtype=torch.float32, device=dev)
+    with annotate("mono.upload"):
+        if isinstance(frame_bgr, np.ndarray):  # a reversed view (img[..., ::-1]) has negative strides
+            frame_bgr = np.ascontiguousarray(frame_bgr)
+        from_host = dev.type == "cuda" and not (torch.is_tensor(frame_bgr) and frame_bgr.is_cuda)
+        with annotate("sync.upload") if from_host else contextlib.nullcontext():
+            frame = torch.as_tensor(frame_bgr, device=dev)
+        frame = frame.to(torch.float32)
     H, W = frame.shape[0], frame.shape[1]
-    rgb = frame.flip(-1) / 255.0
-    small = im.resize(rgb, tuple(net_hw))
-    with torch.no_grad():
+    with annotate("mono.resize"):
+        small = im.resize(frame.flip(-1) / 255.0, tuple(net_hw))
+    with annotate("mono.net"), torch.no_grad():
         pred = model(small[None])[0]
-    depth = im.resize(pred, (H, W))
-    depth_norm = im.minmax_normalize(depth, 0.0, 255.0)
-    gray = im.grayscale_bgr(frame)
-    conf = im.minmax_normalize((gray - im.gaussian_blur(gray, 5)).abs(), 0.0, 1.0)
+    with annotate("mono.post"):
+        depth_norm = im.minmax_normalize(im.resize(pred, (H, W)), 0.0, 255.0)
+        gray = im.grayscale_bgr(frame)
+        conf = im.minmax_normalize((gray - im.gaussian_blur(gray, 5)).abs(), 0.0, 1.0)
     return depth_norm, conf

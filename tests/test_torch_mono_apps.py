@@ -11,7 +11,8 @@ hypothesis draws) on the reference test's frames
 (``tests/test_apps.py:126-174``): the same files, each pixel's TURBO index
 within 1 level of the reference's (the depth before the colormap, as
 uint8), the same printed lines. ``--arch`` and ``--checkpoint`` reach ``create_model``
-verbatim. Without their packages the apps stop at start naming them;
+verbatim, and ``--net-hw H W`` sets the network's input size (a
+non-square one reaches the network). Without their packages the apps stop at start naming them;
 without a card their default device raises.
 """
 
@@ -131,13 +132,41 @@ def test_mono_ai_arch_and_checkpoint_reach_create_model(tmp_path, monkeypatch):
         assert mono_ai.main(["--images", str(frames), "--out", str(out), "--device", "cpu",
                              *flags]) == 0
     assert seen == [
-        {"arch": "small", "torch_state_dict": None, "device": "cpu"},
-        {"arch": "dpt_large", "torch_state_dict": None, "device": "cpu"},
+        {"arch": "small", "torch_state_dict": None, "device": "cpu", "net_hw": (256, 256)},
+        {"arch": "dpt_large", "torch_state_dict": None, "device": "cpu", "net_hw": (256, 256)},
         {"arch": "midas_v21_small", "torch_state_dict": str(tmp_path / "hub.pt"),
-         "device": "cpu"}]
+         "device": "cpu", "net_hw": (256, 256)}]
     assert len(list(out.glob("depth_*.png"))) == 1
     with pytest.raises(SystemExit):
         mono_ai.main(["--images", str(frames), "--arch", "tiny"])
+
+
+def test_mono_ai_runs_the_network_at_a_non_square_size(tmp_path, monkeypatch):
+    """``--net-hw 64 128``: ``create_model`` is asked for that size and the
+    network sees it (a ``DPT_TINY`` in DPT-Large's place); the PNG keeps
+    the frame's size."""
+    from stereovision_tpu_torch.apps import mono_ai
+    from stereovision_tpu_torch.models import dpt
+
+    frames = _jpgs(tmp_path / "frames",
+                   [np.random.default_rng(5).integers(0, 255, (72, 136, 3))])
+    seen, shapes = [], []
+    real = tnn.create_model
+
+    def tiny_dpt(**kw):
+        seen.append(kw)
+        model = real(arch="dpt_large", dpt_cfg=dpt.DPT_TINY, net_hw=kw["net_hw"], device="cpu")
+        model.register_forward_pre_hook(lambda m, args: shapes.append(tuple(args[0].shape)))
+        return model
+
+    monkeypatch.setattr(tnn, "create_model", tiny_dpt)
+    out = tmp_path / "out"
+    assert mono_ai.main(["--images", str(frames), "--out", str(out), "--device", "cpu",
+                         "--arch", "dpt_large", "--net-hw", "64", "128"]) == 0
+    assert seen == [{"arch": "dpt_large", "torch_state_dict": None, "device": "cpu",
+                     "net_hw": (64, 128)}]
+    assert shapes == [(1, 64, 128, 3)]
+    assert iio.imread(out / "depth_0000.png").shape == (72, 136, 3)
 
 
 def test_mono_motion_matches_reference(tmp_path, monkeypatch, capsys):

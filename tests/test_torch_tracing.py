@@ -10,7 +10,8 @@ the exact speckle filter): each ``sgm.*`` span lies inside ``depth.engine``,
 no name opens inside itself, and the pipeline still calls the engine
 through its module's name. ``StageTimer`` stages are ``fused.<stage>``
 spans. The ``cuda`` tests (skipped without a card) trace 720p calls and
-hold every synchronising CUDA runtime call to a ``sync.*`` span:
+hold every synchronising CUDA runtime call to a ``sync.*`` span, and so do
+720p calls of ``mono.nn.estimate_depth``:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_tracing.py
 """
@@ -198,3 +199,28 @@ def test_every_wait_of_a_720p_call_is_a_sync_span(cuda, tmp_path, mode):
             assert n_sync > uploads, kind  # a round of the labelling at least
         else:
             assert n_sync == uploads, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["numpy", "card"])
+def test_every_wait_of_a_720p_mono_depth_call_is_a_sync_span(cuda, tmp_path, source):
+    """``mono.nn.estimate_depth`` on a 1280x720 BGR frame (a ``DPT_TINY``
+    at 64x128): the host waits only for the upload of a frame in host
+    memory, inside its ``sync.upload``."""
+    from stereovision_tpu_torch.models import dpt
+    from stereovision_tpu_torch.mono import nn as mnn
+
+    model = mnn.create_model(arch="dpt_large", dpt_cfg=dpt.DPT_TINY, net_hw=(64, 128),
+                             device=cuda)
+    frame = np.random.default_rng(4).integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    arg = frame if source == "numpy" else torch.from_numpy(frame).to(cuda)
+    mnn.estimate_depth(model, arg, net_hw=(64, 128), device=cuda)  # warms every shape
+    torch.cuda.synchronize()
+
+    def one():
+        with torch.profiler.record_function("call"):
+            mnn.estimate_depth(model, arg, net_hw=(64, 128), device=cuda)
+        torch.cuda.synchronize()
+
+    loose, n_sync = waits_outside_sync_spans(traced(tmp_path, one))
+    assert loose == [] and n_sync == (1 if source == "numpy" else 0)
