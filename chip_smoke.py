@@ -443,9 +443,26 @@ def work(name, args, kw):
     raise KeyError(name)
 
 
-class Recorder:
+class eager_engine:
+    """While active, the stereo engine's public calls run eagerly, each
+    through the kernel wrappers (``stereo.sgm.GRAPHS`` at size 0: a replayed
+    CUDA graph calls no wrapper)."""
+
+    def __enter__(self):
+        from stereovision_tpu_torch.stereo import sgm
+
+        self.graphs, self.size = sgm.GRAPHS, sgm.GRAPHS.size
+        self.graphs.resize(0)
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs.resize(self.size)
+
+
+class Recorder(eager_engine):
     """While active, the named functions of the given modules record each
-    call's arguments (tensors cloned) before running as usual."""
+    call's arguments (tensors cloned) before running as usual; the engine
+    runs eagerly."""
 
     def __init__(self, torch, targets):
         self.torch = torch
@@ -457,6 +474,7 @@ class Recorder:
         return v.clone() if self.torch.is_tensor(v) else v
 
     def __enter__(self):
+        super().__enter__()
         for mod, name in self.targets:
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
@@ -472,6 +490,7 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, name, fn in reversed(self.saved):
             setattr(mod, name, fn)
+        super().__exit__(*exc)
 
 
 def wrapper_of(sgm_cuda, kname):
@@ -1538,15 +1557,17 @@ def profiled_device_ms(torch, fn):
     return total, [(name[:60], round(t / 1e3, 4)) for t, name in top]
 
 
-class plain_kernels:
+class plain_kernels(eager_engine):
     """While active, every engine kernel wrapper of ``sgm_cuda`` is its plain
-    version: the same frame with no kernel of the repo."""
+    version: the same frame with no kernel of the repo; the engine runs
+    eagerly."""
 
     def __init__(self, sgm_cuda):
         self.mod = sgm_cuda
         self.saved = {}
 
     def __enter__(self):
+        super().__enter__()
         for name in (*KERNELS, *NAMED_KERNELS):
             self.saved[name] = getattr(self.mod, name)
             setattr(self.mod, name, plain_of(self.mod, name))
@@ -1555,6 +1576,7 @@ class plain_kernels:
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
             setattr(self.mod, name, fn)
+        super().__exit__(*exc)
 
 
 def sync_count(torch, fn):

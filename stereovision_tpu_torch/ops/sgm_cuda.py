@@ -30,7 +30,8 @@ under ``stats_impl="xla"``, the formulation that option names.
 Each wrapper sends a CPU tensor to its plain PyTorch version (``*_plain``)
 and launches its kernel on a CUDA tensor, on the current stream; there is no
 fallback from one to the other. A wrapper adds one to its count in
-:func:`launch_counts` each time it launches its kernel, and nowhere else;
+:func:`launch_counts` each time it launches its kernel (a replayed CUDA
+graph adds its captured launches, :func:`add_launch_counts`);
 ``aggregate_dual`` counts its chain-mode launches apart, under
 ``aggregate_dual_chain``. The measurement kernels of :mod:`.bench_cuda` add
 their counts to the same dict (:func:`register`).
@@ -165,6 +166,13 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     _launches.update({name: 0 for name in (*COUNTS, *_launches)})
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add launches made without a wrapper call: a CUDA graph's replay of
+    the ``counts`` its captured call made."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def register(signatures: dict, counts) -> None:

@@ -26,17 +26,30 @@ Each stage opens a profiler span (:func:`utils.profiling.annotate`):
 ``sgm.shifts``, ``sgm.census``, ``sgm.refine``, ``sgm.arbitrate``,
 ``sgm.speckle``, ``sgm.fill`` and ``sgm.median``; no name opens inside
 itself.
+
+On a card the public calls (:func:`compute_disparity`,
+:func:`disparity_with_confidence`) run from CUDA graphs
+(:mod:`utils.graphs`): a call whose shapes, settings and device recur is
+run eagerly the first time, captured the second (an ``sgm.capture`` span,
+inside which the stage spans open once) and replayed after (an
+``sgm.replay`` span, no stage span), one launch in place of the host's
+dispatch of a frame's ~500 operations; the same kernels and operations in
+the same order, so the same bits. :func:`graph_counts` counts the three.
+The exact engine (``parallel``) and :func:`exact_speckle_postpass` run
+eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from stereovision_tpu_torch.core import image as im
 from stereovision_tpu_torch.ops import sgm_cuda
+from stereovision_tpu_torch.utils import graphs
 from stereovision_tpu_torch.utils.backend import resolve_device
 from stereovision_tpu_torch.utils.profiling import annotate
 
@@ -941,13 +954,60 @@ def _as_image(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+def _disparity_and_confidence(left, right, p: SGMParams):
+    disp, valid = _compute_disparity(left, right, p)
+    lo = p.min_disparity + 1
+    hi = p.min_disparity + p.num_disparities - 1
+    return disp, (valid & (disp > lo) & (disp < hi)).to(torch.float32)
+
+
+def _capture_counted(fn, inputs):
+    """:func:`utils.graphs.capture` in an ``sgm.capture`` span; each replay
+    in an ``sgm.replay`` span adds the kernel launches that the captured
+    call counted to :func:`sgm_cuda.launch_counts`."""
+    before = sgm_cuda.launch_counts()
+    with annotate("sgm.capture"):
+        replay, outputs = graphs.capture(fn, inputs)
+    added = {k: n - before.get(k, 0) for k, n in sgm_cuda.launch_counts().items()
+             if n != before.get(k, 0)}
+
+    def counted(*args):
+        with annotate("sgm.replay"):
+            out = replay(*args)
+        sgm_cuda.add_launch_counts(added)
+        return out
+
+    return counted, outputs
+
+
+# the public calls' CUDA graphs, by (engine function, shapes, settings,
+# device); ``GRAPHS.reset()`` frees them, ``GRAPHS.resize(0)`` runs every
+# call eagerly (what a recorder of each call's kernel launches needs)
+GRAPHS = graphs.GraphCache(_capture_counted)
+
+
+def _engine(fn, left, right, p: SGMParams):
+    """``fn(left, right, p)`` on float32 images of one device: eagerly on
+    the CPU; on a card eagerly the first time its shapes, settings and
+    device come, captured into a CUDA graph the second, replayed after."""
+    key = None if left.device.type != "cuda" else (fn, left.shape, right.shape, p, left.device)
+    return GRAPHS(key, functools.partial(fn, p=p), left, right)
+
+
+def graph_counts() -> dict[str, int]:
+    """The public engine calls since the last ``GRAPHS.reset()``, by how
+    they ran: ``eager``, ``captures`` (into a CUDA graph) and ``replays``."""
+    return dict(GRAPHS.counts)
+
+
 def compute_disparity(left, right, params: SGMParams = SGMParams(), device="cuda"):
     """Rectified grayscale pair (H, W) → (disparity float32 px, valid bool),
     on ``device``. Invalid pixels carry ``min_disparity − 1`` (cv2 SGBM
-    convention)."""
+    convention). On a card a call whose shapes and settings recur runs
+    from a CUDA graph (:func:`graph_counts`), with the same result."""
     dev = resolve_device(device)
     p = check_params(params)
-    return _compute_disparity(_as_image(left, dev), _as_image(right, dev), p)
+    return _engine(_compute_disparity, _as_image(left, dev), _as_image(right, dev), p)
 
 
 def compute_disparity_batch(lefts, rights, params: SGMParams = SGMParams(), device="cuda"):
@@ -959,9 +1019,8 @@ def compute_disparity_batch(lefts, rights, params: SGMParams = SGMParams(), devi
 
 def disparity_with_confidence(left, right, params: SGMParams = SGMParams(), device="cuda"):
     """Disparity + the reference's confidence contract: 1.0 where disparity is
-    strictly inside (min+1, min+num−1) and valid, else 0.0."""
-    disp, valid = compute_disparity(left, right, params, device)
-    lo = params.min_disparity + 1
-    hi = params.min_disparity + params.num_disparities - 1
-    conf = (valid & (disp > lo) & (disp < hi)).to(torch.float32)
-    return disp, conf
+    strictly inside (min+1, min+num−1) and valid, else 0.0. Runs as
+    :func:`compute_disparity` does, the confidence in the same graph."""
+    dev = resolve_device(device)
+    p = check_params(params)
+    return _engine(_disparity_and_confidence, _as_image(left, dev), _as_image(right, dev), p)

@@ -1704,8 +1704,10 @@ def test_median_blur_rejects_what_the_kernel_does_not_take(cuda):
 def test_depth_frames_launch_the_median(cuda, monkeypatch, mode, launches):
     """A 720p production frame through ``DepthPipeline`` launches the median
     three times, a full-search frame once; the frame equals the one whose
-    medians run the plain network on the card, bit for bit."""
+    medians run the plain network on the card, bit for bit (run eagerly: a
+    replayed graph would launch the kernel it captured)."""
     from stereovision_tpu_torch.pipeline import DepthPipeline
+    from stereovision_tpu_torch.stereo import sgm
 
     h, w = 720, 1280
     base = RNG.integers(0, 256, (h, w + 40), dtype=np.uint8)
@@ -1720,6 +1722,7 @@ def test_depth_frames_launch_the_median(cuda, monkeypatch, mode, launches):
     torch.cuda.synchronize()
     assert sgm_cuda.launch_counts()["median"] == launches
     monkeypatch.setattr(sgm_cuda, "median_blur", sgm_cuda.median_blur_plain)
+    sgm.GRAPHS.reset()
     want = pipe(left, right)
     for a, b in zip((got.disparity, got.confidence, got.depth_m),
                     (want.disparity, want.confidence, want.depth_m)):
