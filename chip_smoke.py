@@ -20,9 +20,8 @@ each of which raises (exit code non-zero, no result line) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the twelve CUDA sources of ``stereovision_tpu_torch/ops/csrc``
-   from the checkout, and six of them again with their measurement
-   variants, earlier designs and ablations, one nvcc per library, all at
-   once;
+   from the checkout, and three of them again with the variants of the
+   measurement scripts, one nvcc per library, all at once;
 3. run one frame of each path recording every kernel launch's inputs, then
    replay each recorded launch against the kernel's plain PyTorch version on
    the same inputs: all must be exact; so must ``wta_stats_from_duals`` on
@@ -81,32 +80,11 @@ each of which raises (exit code non-zero, no result line) on failure:
    against the earlier design (``bench_agg_step``'s ``shipping`` variant)
    on axis 0 at the script's (1280, 736, 32) view, the full search's
    columns and an exact-engine slab (D=320): equal outputs, timed in turns
-   (earlier, staged, staged, earlier); the shipping
-   ``aggregate_dual`` at the engine's shapes (``STAGED_SHAPES``) beside its
-   ablations (``bench_cuda.aggregate_staged_variants``: no recurrence, the
-   staging and flushing alone, the scan alone), device alone; then ``aggregate_dir``'s
+   (earlier, staged, staged, earlier); then ``aggregate_dir``'s
    ``wta_out`` at 720x1280x320 against its plain version, timed beside the
-   plain ``aggregate_dir`` launch; then (:func:`redesign_phase`) the
-   redesigned ``census_words``, ``cost_volume``, ``wta_stats_from_duals``,
-   ``speckle_counts``, ``right_disparity``, ``nearest_valid_lohi`` and
-   ``sum_wta`` against their earlier designs (``bench_cuda.census_words_first``,
-   ``bench_cuda.cost_volume_first``, ``bench_wta_variants``' ``base``
-   variant, ``bench_cuda.speckle_counts_direct``, ``bench_rdisp``'s
-   ``in_place`` variant, ``bench_cuda.nearest_valid_lohi_chunks`` and
-   ``bench_cuda.sum_wta_first``) on the full search's recorded ``sum_wta``
-   launches (LR on: hwd; LR off: none; int8 at 720x1280x320) and seeded
-   int16 volumes at that shape, and on
-   the production frame's recorded launches (census at 720x1280 and
-   240x426, 5x5; the refine stack (960, 1280, 32) and the coarse search
-   (240, 426, 107); 720x1280 at k=15, nbins=13 and 240x426 at k=15,
-   nbins=6; the LR check at (720, 1280, 32) and (240, 426, 107) int8;
-   the fill's 720x1280 along each axis), one seeded ``cost_volume`` launch
-   at (720, 1280, 320) and the LR-on full search's ``right_disparity``
-   launch at (720, 1280, 320) int16: equal outputs, timed in turns
-   (earlier, new, new, earlier), the census, cost, right-disparity and
-   sum_wta kernels also with a part taken out (:func:`ablations`), and one ``nearest_valid_lohi``
-   launch on a line past 8192 on each axis, exact against its plain
-   version;
+   plain ``aggregate_dir`` launch; then one ``nearest_valid_lohi`` launch
+   on a line past 8192 on each axis (``LONG_LINES``), exact against its
+   plain version;
 11. (:func:`pipeline_phases`) the options of ``DepthPipeline`` at full
    width on the production rig: ``agg_wseg=5`` (recorded, replayed,
    counted, against ``impl="xla"``, timed), ``proc_scale=0.5``
@@ -275,14 +253,6 @@ DESIGNS = {"aggregate_dual": "staged ring", "aggregate_dual_chain": "staged ring
 # lines past the 8192 that nearest_valid_lohi once refused: shape, axis
 LONG_LINES = (((4, 10000), 1), ((9000, 6), 0))
 FIRST_DESIGN = "first port"
-# the shapes at which phase 10 takes the shipping aggregate_dual apart:
-# label, (H, W, D), axis
-STAGED_SHAPES = (("the stacked refine", (960, W, 32), 1),
-                 ("the coarse search", (H // 3, 426, 107), 1),
-                 ("the script's view", (1280, 736, 32), 0),
-                 ("the full search, rows", (H, W, D), 1),
-                 ("the full search, columns", (H, W, D), 0),
-                 ("an exact-engine slab", (H // 4, W, D), 0))
 # stages of the production frame, timed by replaying their recorded calls
 STAGES = {
     "im": ("remap", "resize"),
@@ -1059,29 +1029,6 @@ def script_phases(torch, card: str):
     agg_row = next(r for r in rows if r["name"] == "aggregate_dual_variants")
     agg_row["staged_ab"] = ab_all
 
-    # which part of the shipping aggregate_dual holds its time: the kernel
-    # with its recurrence, its scan or its staging and flushing taken out, on
-    # seeded costs at the shapes the engine gives it (device alone)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    table = {}
-    for label, shape, axis in STAGED_SHAPES:
-        cost = torch.randint(0, 61, shape, dtype=torch.int8, device="cuda", generator=gen)
-        forms = {"full": lambda: sgm_cuda.aggregate_dual(cost, 8.0, 96.0, axis=axis,
-                                                         out_dtype=torch.int8)}
-        forms.update({f: (lambda f=f: bench_cuda.aggregate_staged_variants(cost, f, axis=axis))
-                      for f in bench_cuda.STAGED_FORMS})
-        got = forms["no_recurrence"]()
-        check(all(torch.equal(g, w) for g, w in
-                  zip(got, bench_cuda.aggregate_staged_variants_plain(cost, "no_recurrence"))),
-              "the staged no_recurrence ablation differs from its plain version")
-        table[label] = {f: device_ms(fn, f"staged {f} at {label}") for f, fn in forms.items()}
-        b_ms = bound_ms(*work("aggregate_dual", (cost, 8.0, 96.0, axis, torch.int8), {}))[0]
-        print(f"aggregate_dual (staged) at {label} {shape} axis {axis}, int8, device alone: "
-              + ", ".join(f"{f} {fmt(ms)}" for f, ms in table[label].items())
-              + f"; bound {b_ms:.4f} ms, card {card}")
-        del cost, got
-    agg_row["staged_ablations"] = table
-
     # aggregate_dir's wta_out at the engine's full-search shape
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cost = torch.randint(0, 40, (H, W, D), device="cuda", generator=gen).float()
@@ -1097,142 +1044,9 @@ def script_phases(torch, card: str):
     without_ms = cuda_ms(torch, lambda: sgm_cuda.aggregate_dir(cost, 8.0, 96.0, 0, True, acc), 5)
     print(f"aggregate_dir axis 0 reverse acc at {H}x{W}x{D}: wta_out exact against its plain "
           f"version; {with_ms:.4f} ms with wta_out, {without_ms:.4f} ms without, card {card}")
-    return rows, script_rows
+    del cost, acc
 
-
-def launch_label(kname: str, a, kw) -> str:
-    """A redesigned kernel's launch by its shape and the arguments that
-    choose its work."""
-    if kname == "right_disparity":
-        return f"{tuple(a[0].shape)} {str(a[0].dtype).removeprefix('torch.')}"
-    if kname == "nearest_valid_lohi":
-        return f"{tuple(a[0].shape)} axis {kw.get('axis', a[3] if len(a) > 3 else 1)}"
-    if kname == "census_words":
-        return f"{tuple(a[0].shape)} {a[1]}x{a[2]}"
-    if kname == "cost_volume":
-        nw, h, wd = a[0].shape
-        return f"({h}, {wd}, {a[2]}) nw={nw} min_d={a[3]}"
-    if kname == "speckle_counts":
-        return f"{tuple(a[0].shape)} k={a[1]} nbins={a[3]}"
-    if kname == "sum_wta_fused":
-        return (f"{tuple(a[0].shape)} {str(a[0].dtype).removeprefix('torch.')} "
-                f"{kw.get('emit', 'hwd')}")
-    return str(tuple(a[0].shape))
-
-
-def seeded_cost_launch(torch, sgm_cuda):
-    """One cost_volume launch at the full search's (720, 1280, 320): the 5x5
-    census of the seeded flat pair, min_d 0, max_cost 24."""
-    cl, cr = (sgm_cuda.census_words(torch.as_tensor(img, device="cuda"), 5, 5)
-              for img in flat_pair())
-    return (cl, cr, D, 0, 24), {}
-
-
-def ablations(torch, kname: str, a, label: str):
-    """The device time of each ablation of the shipping census_words (at
-    5x5), cost_volume (at nw = 1), right_disparity or sum_wta kernel on one
-    recorded launch's inputs (``bench_cuda.census_words_ablations``,
-    ``cost_volume_ablations``, ``right_disparity_ablations``,
-    ``sum_wta_ablations``), each defined one exact against its plain
-    version; None for another launch."""
-    from stereovision_tpu_torch.ops import bench_cuda
-
-    if kname == "right_disparity":
-        return {form: device_ms(lambda form=form: bench_cuda.right_disparity_ablations(
-                    *a[:1], form, *a[1:2]), f"{form} at {label}")
-                for form in bench_cuda.RDISP_ABLATIONS}
-    if kname == "sum_wta_fused":
-        got = bench_cuda.sum_wta_ablations(*a[:4], "no_store")
-        want = bench_cuda.sum_wta_ablations_plain(*a[:4], "no_store")
-        check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
-              f"the no_store ablation's statistics differ from the plain ones at {label}")
-        return {form: device_ms(lambda form=form: bench_cuda.sum_wta_ablations(*a[:4], form),
-                                f"{form} at {label}")
-                for form in bench_cuda.SUM_ABLATIONS}
-    if kname == "census_words" and tuple(a[1:3]) == (5, 5):
-        fn, plain, forms, args = (bench_cuda.census_words_ablations,
-                                  bench_cuda.census_words_ablations_plain,
-                                  bench_cuda.CENSUS_ABLATIONS, a[:1])
-    elif kname == "cost_volume" and a[0].shape[0] == 1:
-        fn, plain, forms, args = (bench_cuda.cost_volume_ablations,
-                                  bench_cuda.cost_volume_ablations_plain,
-                                  bench_cuda.COST_ABLATIONS, a)
-    else:
-        return None
-    out = {}
-    for form in forms:
-        if form == "direct" and a[2] % 16:
-            continue
-        want = plain(*args, form)
-        if want is not None:
-            check(torch.equal(fn(*args, form), want),
-                  f"the {form} ablation differs from its plain version at {label}")
-        out[form] = device_ms(lambda form=form: fn(*args, form), f"{form} at {label}")
-    return out
-
-
-def redesign_phase(torch, card: str, calls):
-    """The end of phase 10: each redesigned kernel against its earlier design
-    on the production frame's recorded launches, the full search's for
-    ``sum_wta`` (wrapper name → [(args, kwargs)]; each distinct launch
-    once, see :func:`launch_label`): both
-    exact against the plain version, then timed in turns (earlier, new,
-    new, earlier; events and the device alone), census_words,
-    cost_volume, right_disparity and sum_wta also with a part taken out
-    (:func:`ablations`); and ``nearest_valid_lohi`` on lines past 8192
-    (``LONG_LINES``), exact. Returns {wrapper name: {launch: the turns'
-    (ms, device_ms) by design, the bound and the ablations' device_ms}}."""
-    from stereovision_tpu_torch.ops import bench_cuda, sgm_cuda
-
-    earlier = {
-        "wta_stats_from_duals": lambda hf, hb, d_valid=None: bench_cuda.wta_stats_variants(
-            hf, hb, "base", d_valid),
-        "right_disparity": lambda s, d_valid=None: bench_cuda.right_disparity_variants(
-            s, "in_place", d_valid),
-        "nearest_valid_lohi": bench_cuda.nearest_valid_lohi_chunks,
-        "speckle_counts": bench_cuda.speckle_counts_direct,
-        "census_words": bench_cuda.census_words_first,
-        "cost_volume": bench_cuda.cost_volume_first,
-        "sum_wta_fused": bench_cuda.sum_wta_first,
-    }
-    table = {}
-    for kname, kcalls in calls.items():
-        forms = {"earlier": earlier[kname], "new": getattr(sgm_cuda, kname)}
-        table[kname] = {}
-        for a, kw in kcalls:
-            label = launch_label(kname, a, kw)
-            if label in table[kname]:
-                continue
-            want = plain_of(sgm_cuda, kname)(*a, **kw)
-            want = want if isinstance(want, tuple) else (want,)
-            for name, fn in forms.items():
-                got = fn(*a, **kw)
-                got = got if isinstance(got, tuple) else (got,)
-                check(len(got) == len(want) and all(
-                    (g is None and w is None) or (g is not None and w is not None
-                                                  and g.dtype == w.dtype and torch.equal(g, w))
-                    for g, w in zip(got, want)),
-                    f"{kname} ({name} design) differs from its plain version at {label}")
-            del got, want
-            turns = {"earlier": [], "new": []}
-            for name in ("earlier", "new", "new", "earlier"):
-                def call(fn=forms[name]):
-                    return fn(*a, **kw)
-                turns[name].append((cuda_ms(torch, call, 20, warmup=3),
-                                    device_ms(call, f"{kname} {name} at {label}")))
-            b_ms, b_by = bound_ms(*work(kname, a, kw))
-            print(f"redesigned {kname} at {label}, in turns (earlier, new, new, earlier), "
-                  "equal outputs: " + "; ".join(
-                      f"{name} " + ", ".join(f"{ms:.4f} ms (device alone {fmt(dev)})"
-                                             for ms, dev in v) for name, v in turns.items())
-                  + f"; bound {b_ms:.4f} ms ({b_by}), card {card}")
-            table[kname][label] = {**turns, "bound_ms": b_ms, "bound_by": b_by}
-            abl = ablations(torch, kname, a, f"{kname} at {label}")
-            if abl:
-                table[kname][label]["ablations"] = abl
-                print(f"{kname} at {label} with a part taken out, device alone: "
-                      + ", ".join(f"{f} {fmt(ms)}" for f, ms in abl.items())
-                      + f" (the whole kernel {fmt(turns['new'][0][1])}), card {card}")
+    # nearest_valid_lohi on lines past 8192
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for shape, axis in LONG_LINES:
         d = torch.rand(shape, generator=gen, device="cuda") * 64
@@ -1246,7 +1060,8 @@ def redesign_phase(torch, card: str, calls):
               f"nearest_valid_lohi differs from its plain version on {shape} along axis {axis}")
         print(f"nearest_valid_lohi on {shape} along axis {axis} (lines of {shape[axis]}): exact "
               f"against its plain version, card {card}")
-    return table
+    return rows, script_rows
+
 
 # the calibration of phase 11d: a small relative rotation and barrel
 # distortion, rectified by the port's stereo_rectify (alpha 0)
@@ -3523,20 +3338,6 @@ def main() -> int:
         "lr_off_full_launch": timed["full_lr_off"],
     })
     rows.append(median_row(torch, sgm_cuda, recorded, frame_ms, launches, errs))
-    redesigned = {k: prod[k] for k in ("census_words", "cost_volume", "wta_stats_from_duals",
-                                        "speckle_counts", "right_disparity",
-                                        "nearest_valid_lohi")}
-    redesigned["cost_volume"] = redesigned["cost_volume"] + [seeded_cost_launch(torch, sgm_cuda)]
-    # the full search with the LR check: int16 at (720, 1280, 320)
-    redesigned["right_disparity"] = (redesigned["right_disparity"]
-                                     + recorded["full_lr_on"]["right_disparity"])
-    # the full search's fused sum: its LR-on (hwd) and LR-off (none) launches
-    # and seeded int16 volumes (a census with n_bits + P2 > 127) at its shape
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    redesigned["sum_wta_fused"] = (
-        recorded["full_lr_on"]["sum_wta_fused"] + recorded["full_lr_off"]["sum_wta_fused"]
-        + [(tuple(torch.randint(0, 150, (H, W, D), dtype=torch.int16, device="cuda",
-                                generator=gen) for _ in range(4)), {"emit": "hwd"})])
     del recorded, prod
     torch.cuda.empty_cache()
     chain_rows, host = parallel_phases(torch, card)
@@ -3545,10 +3346,6 @@ def main() -> int:
     script_rows, sum_script = script_phases(torch, card)
     rows += script_rows
     next(r for r in rows if r["name"] == "sum_wta")["script_device_ms"] = sum_script["sum_wta"]
-    for kname, ab in redesign_phase(torch, card, redesigned).items():
-        kname = NAMED_KERNELS.get(kname, (kname,))[0]
-        next(r for r in rows if r["name"] == kname)["earlier_design_ab"] = ab
-    del redesigned
     torch.cuda.empty_cache()
     next(r for r in rows if r["name"] == "shift_gather")["separable_remap"] = pipeline_phases(
         torch, card, cal, planes, launches["production"], frame_ms["production"])

@@ -8,10 +8,11 @@ started together. Libraries go into ``build/cuda/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is.
 
-Six shipping sources are built a second time with ``-DSVT_VARIANTS`` into
-libraries of their own (:data:`VARIANTS`), which add the measurement
-variants and ablations of ``ops.bench_cuda``; the shipping libraries stay as they were
-and the two builds run side by side.
+Three shipping sources (``aggregate``, ``wta_stats``, ``right_disparity``)
+are built a second time with ``-DSVT_VARIANTS`` into libraries of their own
+(:data:`VARIANTS`), which add the ports of the measurement scripts'
+variants (``ops.bench_cuda``); the shipping libraries stay as they were and
+the two builds run side by side.
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ KERNELS = ("census", "cost", "aggregate", "wta_stats", "right_disparity", "shift
            "speckle", "nearest_lohi", "aggregate_dir", "wta", "sum_wta", "median")
 # variant library → the shipping source it is built from, with -DSVT_VARIANTS
 VARIANTS = {"aggregate_variants": "aggregate", "wta_stats_variants": "wta_stats",
-            "right_disparity_variants": "right_disparity", "census_variants": "census",
-            "cost_variants": "cost", "sum_wta_variants": "sum_wta"}
+            "right_disparity_variants": "right_disparity"}
 LIBRARIES = KERNELS + tuple(VARIANTS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

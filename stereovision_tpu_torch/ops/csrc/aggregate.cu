@@ -33,7 +33,7 @@
 // a second floor, and the min/max and conversions of ~7 operations an
 // element run at a half and an eighth of the float add rate, a third. A
 // design that loads a step's row from device memory one step ahead (the
-// earlier one, kept below for the ablations) waits a memory round trip
+// earlier one, which the variants below are built on) waits a memory round trip
 // every step; this one takes the loads and the stores out of the chain and
 // keeps a step's instructions few.
 //
@@ -353,18 +353,13 @@ struct Consts {
 // else L = c, a line's first step), its min (POSITIVE: on the floats' bits,
 // else on keys), the next carry, and L stored into the tile at o (INTS: by
 // the magic add, else by conversion).
-// Forms of the staged kernel: kFull ships; the others are measurement
-// ablations (built with -DSVT_VARIANTS): no recurrence (L = c), the staging
-// and flushing alone (no scan), the scan alone (nothing staged or flushed).
-enum : int { kFull = 0, kNoRecurrence = 1, kStageOnly = 2, kScanOnly = 3 };
-
-template <int V, typename OutT, bool INTS, bool CARRIED, bool POSITIVE, int FORM>
+template <int V, typename OutT, bool INTS, bool CARRIED, bool POSITIVE>
 __device__ __forceinline__ void step(float (&n)[V], const Raw<V>& raw, const Consts<V>& k,
                                      unsigned o) {
   constexpr bool kClamp = sizeof(OutT) == 1;
   float l[V];
   unpack<V>(l, raw, k.bias);
-  if constexpr (CARRIED && FORM != kNoRecurrence) {
+  if constexpr (CARRIED) {
     float lo = __shfl_up_sync(FULL_MASK, n[V - 1], 1);
     float hi = __shfl_down_sync(FULL_MASK, n[0], 1);
     if (k.lane == 0) lo = kBig;
@@ -376,7 +371,7 @@ __device__ __forceinline__ void step(float (&n)[V], const Raw<V>& raw, const Con
       l[v] = l[v] + fminf(fminf(n[v], k.p2), fminf(sm, sp) + k.p1);
     }
   }
-  const float m = FORM == kNoRecurrence ? 0.0f : warp_min<V>(l, POSITIVE);
+  const float m = warp_min<V>(l, POSITIVE);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     n[v] = l[v] - m;
@@ -393,7 +388,7 @@ __device__ __forceinline__ void step(float (&n)[V], const Raw<V>& raw, const Con
 // The steps of one chunk in scan order; `first` is 0 when the chunk carries
 // on a line, 1 when its first step is the line's first (L = c), 2 when that
 // step starts from a seed (any values: a keyed min).
-template <int V, typename OutT, int AXIS, bool INTS, int FORM>
+template <int V, typename OutT, int AXIS, bool INTS>
 __device__ __forceinline__ void scan_chunk(float (&n)[V], const Consts<V>& k,
                                            const Rows<AXIS, (int)sizeof(OutT)>& rows, int steps,
                                            int dir, int first) {
@@ -406,16 +401,16 @@ __device__ __forceinline__ void scan_chunk(float (&n)[V], const Consts<V>& k,
     const Raw<V> raw = next;
     if (steps > 1) load_raw<V>(next, rows.in(t + dt), k.nv);
     if (first == 1)
-      step<V, OutT, INTS, false, INTS, FORM>(n, raw, k, rows.out(t));
+      step<V, OutT, INTS, false, INTS>(n, raw, k, rows.out(t));
     else
-      step<V, OutT, INTS, true, false, FORM>(n, raw, k, rows.out(t));
+      step<V, OutT, INTS, true, false>(n, raw, k, rows.out(t));
     t += dt;
     i = 1;
   }
   for (; i < steps; ++i, t += dt) {
     const Raw<V> raw = next;
     if (i + 1 < steps) load_raw<V>(next, rows.in(t + dt), k.nv);
-    step<V, OutT, INTS, true, INTS, FORM>(n, raw, k, rows.out(t));
+    step<V, OutT, INTS, true, INTS>(n, raw, k, rows.out(t));
   }
 }
 
@@ -428,7 +423,7 @@ __device__ __forceinline__ void scan_chunk(float (&n)[V], const Consts<V>& k,
 // lines too slowly; PERF.md.) The minimum of one block an SM is stated so
 // that ptxas gives the widest instances (V = 24-32) the registers they
 // need: with the thread count alone it held them to 128 and spilled.
-template <int V, typename OutT, int AXIS, int FORM>
+template <int V, typename OutT, int AXIS>
 __global__ void __launch_bounds__(32 * kLines, 1) agg_staged_kernel(const AggArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kOut = (int)sizeof(OutT);
@@ -478,7 +473,7 @@ __global__ void __launch_bounds__(32 * kLines, 1) agg_staged_kernel(const AggArg
 
 #pragma unroll
   for (int c = 0; c < kRing - 1; ++c) {
-    if (FORM != kScanOnly && c < chunks)
+    if (c < chunks)
       stage(sbase + c * geo.in_chunk, cost, chunk_of(AXIS, D, T, row, dir, c, line0, nl, S), row,
             geo.in_slot);
     cp_async_commit();
@@ -487,12 +482,12 @@ __global__ void __launch_bounds__(32 * kLines, 1) agg_staged_kernel(const AggArg
     cp_async_wait<kRing - 2>();
     __syncthreads();  // chunk c has landed; chunk c-1's slot and the tile are free
     const int ahead = c + kRing - 1;
-    if (FORM != kScanOnly && ahead < chunks)
+    if (ahead < chunks)
       stage(sbase + (ahead % kRing) * geo.in_chunk, cost,
             chunk_of(AXIS, D, T, row, dir, ahead, line0, nl, S), row, geo.in_slot);
     cp_async_commit();
     const Chunk ck = chunk_of(AXIS, D, T, row, dir, c, line0, nl, S);
-    if (FORM != kStageOnly && active) {
+    if (active) {
       const unsigned ring = sbase + (c % kRing) * geo.in_chunk;
       rows.in_ph = (int)((uintptr_t)(cost + ck.first) & 15);
       rows.out_ph = (int)((uintptr_t)(out + ck.first) & 15);
@@ -506,12 +501,12 @@ __global__ void __launch_bounds__(32 * kLines, 1) agg_staged_kernel(const AggArg
       }
       const int first = c > 0 ? 0 : (seed == nullptr ? 1 : 2);
       if (ints)
-        scan_chunk<V, OutT, AXIS, true, FORM>(n, k, rows, ck.steps, dir, first);
+        scan_chunk<V, OutT, AXIS, true>(n, k, rows, ck.steps, dir, first);
       else
-        scan_chunk<V, OutT, AXIS, false, FORM>(n, k, rows, ck.steps, dir, first);
+        scan_chunk<V, OutT, AXIS, false>(n, k, rows, ck.steps, dir, first);
     }
     __syncthreads();  // the tile holds the chunk's L
-    if (FORM != kScanOnly) flush<OutT>(out, tile, ck, row, geo.out_slot);
+    flush<OutT>(out, tile, ck, row, geo.out_slot);
   }
   if (active && fin != nullptr) {
 #pragma unroll
@@ -520,10 +515,10 @@ __global__ void __launch_bounds__(32 * kLines, 1) agg_staged_kernel(const AggArg
   }
 }
 
-template <int V, typename OutT, int FORM>
+template <int V, typename OutT>
 static int launch_staged(const AggArgs& a, cudaStream_t stream) {
   const Geometry geo = geometry(a.axis, a.D, a.T, sizeof(OutT));
-  auto kernel = a.axis == 0 ? agg_staged_kernel<V, OutT, 0, FORM> : agg_staged_kernel<V, OutT, 1, FORM>;
+  auto kernel = a.axis == 0 ? agg_staged_kernel<V, OutT, 0> : agg_staged_kernel<V, OutT, 1>;
   if (geo.bytes > 48 * 1024) {  // past 48 KB only as opted-in dynamic shared memory
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
@@ -538,7 +533,7 @@ template <typename OutT>
 static int launch(const AggArgs& a, cudaStream_t stream) {
 #define SVT_AGG_CASE(VV) \
   case VV:               \
-    return launch_staged<VV, OutT, kFull>(a, stream);
+    return launch_staged<VV, OutT>(a, stream);
   switch (lane_values(a.D)) {
     SVT_AGG_CASE(1) SVT_AGG_CASE(2) SVT_AGG_CASE(3) SVT_AGG_CASE(4)
     SVT_AGG_CASE(8) SVT_AGG_CASE(12) SVT_AGG_CASE(16) SVT_AGG_CASE(20)
@@ -547,28 +542,6 @@ static int launch(const AggArgs& a, cudaStream_t stream) {
       return (int)cudaErrorInvalidValue;  // D > 1024
   }
 #undef SVT_AGG_CASE
-}
-
-// The arguments of one launch (no chain mode: null seeds and carries).
-static AggArgs make_args(const void* cost, const void* cost_b, void* out_f, void* out_b, int H,
-                         int W, int D, int axis, float p1, float p2) {
-  AggArgs a;
-  a.cost_f = (const int8_t*)cost;
-  a.cost_b = (const int8_t*)cost_b;
-  a.seed_f = a.seed_b = nullptr;
-  a.out_f = out_f;
-  a.out_b = out_b;
-  a.final_f = a.final_b = nullptr;
-  a.H = H;
-  a.W = W;
-  a.D = D;
-  a.axis = axis;
-  a.T = chunk_steps(D);
-  a.p1 = p1;
-  a.p2 = p2;
-  a.exact_ints = p1 >= 0.0f && p2 >= 0.0f && p1 < kShift && p2 < kShift && p1 == (float)(int)p1 &&
-                 p2 == (float)(int)p2;
-  return a;
 }
 
 // out_bytes: 1 (int8, clamped at 127) or 2 (int16). cost_b: the backward
@@ -582,11 +555,24 @@ extern "C" int svt_aggregate_dual(const void* cost, const void* cost_b, const vo
     return (int)cudaErrorInvalidValue;  // chain mode scans columns only
   if (D < 1) return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return 0;  // no line, or no step
-  AggArgs a = make_args(cost, cost_b, out_f, out_b, H, W, D, axis, p1, p2);
+  AggArgs a;
+  a.cost_f = (const int8_t*)cost;
+  a.cost_b = (const int8_t*)cost_b;
   a.seed_f = (const float*)seed_f;
   a.seed_b = (const float*)seed_b;
+  a.out_f = out_f;
+  a.out_b = out_b;
   a.final_f = (float*)final_f;
   a.final_b = (float*)final_b;
+  a.H = H;
+  a.W = W;
+  a.D = D;
+  a.axis = axis;
+  a.T = chunk_steps(D);
+  a.p1 = p1;
+  a.p2 = p2;
+  a.exact_ints = p1 >= 0.0f && p2 >= 0.0f && p1 < kShift && p2 < kShift && p1 == (float)(int)p1 &&
+                 p2 == (float)(int)p2;
   const cudaStream_t st = (cudaStream_t)stream;
   return out_bytes == 1 ? launch<int8_t>(a, st) : launch<int16_t>(a, st);
 }
@@ -594,7 +580,7 @@ extern "C" int svt_aggregate_dual(const void* cost, const void* cost_b, const vo
 #ifdef SVT_VARIANTS
 
 // ---------------------------------------------------------------------------
-// The earlier design, kept as the subject of the ablations
+// The earlier design, kept as the subject of the script's variants
 // ---------------------------------------------------------------------------
 
 #define WARPS_PER_BLOCK 4
@@ -892,32 +878,6 @@ extern "C" int svt_aggregate_dual_variant(const void* cost, void* out_f, void* o
   }
 #undef SVT_VAR_CASE
   return err != 0 ? err : (int)cudaGetLastError();
-}
-
-// The staged kernel's ablations on an (H, W, D) int8 volume along axis 0 or
-// 1, int8 stores: form kNoRecurrence (L = c), kStageOnly (staging and
-// flushing alone: the tile it flushes is not written) or kScanOnly (the scan
-// alone: nothing staged or flushed). D <= 384.
-extern "C" int svt_aggregate_staged_variant(const void* cost, void* out_f, void* out_b, int H,
-                                            int W, int D, int axis, float p1, float p2, int form,
-                                            void* stream) {
-  if (D < 1 || lane_values(D) > 12) return (int)cudaErrorInvalidValue;
-  if (H == 0 || W == 0) return 0;
-  const AggArgs a = make_args(cost, cost, out_f, out_b, H, W, D, axis, p1, p2);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define SVT_FORM_CASE(VV)                                                              \
-  case VV:                                                                             \
-    return form == kNoRecurrence ? launch_staged<VV, int8_t, kNoRecurrence>(a, st)    \
-           : form == kStageOnly  ? launch_staged<VV, int8_t, kStageOnly>(a, st)       \
-           : form == kScanOnly   ? launch_staged<VV, int8_t, kScanOnly>(a, st)        \
-                                 : (int)cudaErrorInvalidValue;
-  switch (lane_values(D)) {
-    SVT_FORM_CASE(1) SVT_FORM_CASE(2) SVT_FORM_CASE(3) SVT_FORM_CASE(4)
-    SVT_FORM_CASE(8) SVT_FORM_CASE(12)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SVT_FORM_CASE
 }
 
 #endif  // SVT_VARIANTS

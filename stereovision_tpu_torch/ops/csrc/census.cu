@@ -13,11 +13,7 @@
 // pixel (7.4 MB at 1280x720 with one word: ~2.2 us at 3.35 TB/s); its
 // compares, ~25 a pixel at 5x5, are below that.
 //
-// What held the first port back: issue, not bytes. A thread a pixel with
-// runtime window loops paid a clamp, an address, a load, the centre's branch
-// and a word-store branch for every neighbour: ~500 instructions a pixel.
-//
-// Design (census_staged, the shipping path): a block of 4 warps owns 4 rows
+// Design (census_staged): a block of 4 warps owns 4 rows
 // of 128 pixels. It stages the rows and columns its windows reach, with the
 // border replicated once here (clamped addresses), as float32 in shared
 // memory by 4-byte cp.async copies (all of a thread's loads in flight at
@@ -35,15 +31,9 @@
 // store, where the 4 pixels lie in the image and the plane's offset keeps
 // that alignment, else as single words (a row's ends).
 //
-// What bounds it now: a bit costs two instructions of the ALU pipe (a
-// compare and a predicated add), ~3 us of issue (reckoned) at 1280x720, 5x5, above
-// the byte bound; the ablations (bench_cuda.census_words_ablations) time
-// the staging alone and the compares without stores.
-//
-// census_first is the design this kernel replaced (a thread a pixel,
-// runtime loops), kept for timing beside it (svt_census_words_first).
-// Built with -DSVT_VARIANTS, the library also holds the ablations
-// (svt_census_words_ablation).
+// What bounds it: a bit costs two instructions of the ALU pipe (a compare
+// and a predicated add), ~3 us of issue (reckoned) at 1280x720, 5x5, above
+// the byte bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,15 +97,9 @@ __device__ __forceinline__ void census_tile(const float* __restrict__ img, float
   if (y < H && xs < W) body(y, xs, lane + (a == 0), a);
 }
 
-// Ablations (built with -DSVT_VARIANTS; census_staged<5, 5, form>): the
-// tile staged and zero words stored, no compare (kStageOnly), or every
-// compare made and no word stored (kNoStore: a store guarded by a value no
-// 5x5 word takes).
-enum { kShip = 0, kStageOnly = 1, kNoStore = 2 };
-
 // One lane's 4 pixels at window size (K, WS) and shift S: the pixels' first
 // window column is 4 * chunk + S of the staged row.
-template <int K, int WS, int S, int AB>
+template <int K, int WS, int S>
 __device__ __forceinline__ void census_body(const float* s, int32_t* __restrict__ out, int H,
                                             int W, int y, int xs, int chunk) {
   constexpr int PX = K / 2, PY = WS / 2, NB = K * WS - 1, NW = (NB + 31) / 32;
@@ -139,7 +123,7 @@ __device__ __forceinline__ void census_body(const float* s, int32_t* __restrict_
 #pragma unroll
     for (int p = 0; p < 4; ++p) words[w][p] = 0;
 #pragma unroll
-  for (int dy = 0; dy < (AB == kStageOnly ? 0 : WS); ++dy) {
+  for (int dy = 0; dy < WS; ++dy) {
     const float4* rp = reinterpret_cast<const float4*>(s + (warp + dy) * SW) + chunk;
     float v[4 * NCH];
 #pragma unroll
@@ -158,12 +142,11 @@ __device__ __forceinline__ void census_body(const float* s, int32_t* __restrict_
     }
   }
   const size_t plane = (size_t)H * W, f = (size_t)y * W + xs;
-  if (AB == kNoStore && (words[0][0] & words[0][1] & words[0][2] & words[0][3]) != ~0u) return;
 #pragma unroll
   for (int w = 0; w < NW; ++w) store4(out + w * plane, f, xs, W, words[w]);
 }
 
-template <int K, int WS, int AB = kShip>
+template <int K, int WS>
 __global__ void __launch_bounds__(kThreads) census_staged(const float* __restrict__ img,
                                                           int32_t* __restrict__ out, int H,
                                                           int W) {
@@ -171,10 +154,10 @@ __global__ void __launch_bounds__(kThreads) census_staged(const float* __restric
   __shared__ __align__(16) float s[SR * SW];
   census_tile(img, s, H, W, K / 2, WS / 2, SW, SR, [&](int y, int xs, int chunk, int a) {
     switch (a) {  // warp-uniform: a row's shift
-      case 0: census_body<K, WS, 0, AB>(s, out, H, W, y, xs, chunk); break;
-      case 1: census_body<K, WS, 3, AB>(s, out, H, W, y, xs, chunk); break;
-      case 2: census_body<K, WS, 2, AB>(s, out, H, W, y, xs, chunk); break;
-      default: census_body<K, WS, 1, AB>(s, out, H, W, y, xs, chunk); break;
+      case 0: census_body<K, WS, 0>(s, out, H, W, y, xs, chunk); break;
+      case 1: census_body<K, WS, 3>(s, out, H, W, y, xs, chunk); break;
+      case 2: census_body<K, WS, 2>(s, out, H, W, y, xs, chunk); break;
+      default: census_body<K, WS, 1>(s, out, H, W, y, xs, chunk); break;
     }
   });
 }
@@ -213,36 +196,6 @@ __global__ void __launch_bounds__(kThreads) census_staged_any(const float* __res
   });
 }
 
-// The first port: a thread a pixel, runtime loops.
-__global__ void census_first(const float* __restrict__ img, int32_t* __restrict__ out, int H,
-                             int W, int ksize, int wsize) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const int pad_x = ksize / 2, pad_y = wsize / 2;
-  const float c = img[(size_t)y * W + x];
-  const size_t plane = (size_t)H * W;
-  const size_t pix = (size_t)y * W + x;
-  uint32_t word = 0;
-  int bit = 0, w = 0;
-  for (int dy = 0; dy < wsize; ++dy) {
-    const int yy = min(max(y + dy - pad_y, 0), H - 1);
-    for (int dx = 0; dx < ksize; ++dx) {
-      if (dy == pad_y && dx == pad_x) continue;
-      const int xx = min(max(x + dx - pad_x, 0), W - 1);
-      const float v = __ldg(img + (size_t)yy * W + xx);
-      word |= (uint32_t)(v < c) << (bit & 31);
-      ++bit;
-      if ((bit & 31) == 0) {
-        out[w * plane + pix] = (int32_t)word;
-        word = 0;
-        ++w;
-      }
-    }
-  }
-  if (bit & 31) out[w * plane + pix] = (int32_t)word;
-}
-
 // The grid: a block a tile of 4 rows of 32 groups of 4 pixels; a row
 // shifted by a = (y * W) mod 4 needs ceil((W + a) / 4) groups.
 dim3 tiles(int H, int W) {
@@ -276,32 +229,5 @@ extern "C" int svt_census_words(const void* img, void* out, int H, int W, int ks
       census_staged_any<<<grid, kThreads, smem, st>>>(in, o, H, W, ksize, wsize);
     }
   }
-  return (int)cudaGetLastError();
-}
-
-#ifdef SVT_VARIANTS
-// An ablation of census_staged at 5x5 (the forms above).
-extern "C" int svt_census_words_ablation(const void* img, void* out, int H, int W, int ablation,
-                                         void* stream) {
-  const dim3 grid = tiles(H, W);
-  const float* in = (const float*)img;
-  int32_t* o = (int32_t*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ablation == kStageOnly)
-    census_staged<5, 5, kStageOnly><<<grid, kThreads, 0, st>>>(in, o, H, W);
-  else if (ablation == kNoStore)
-    census_staged<5, 5, kNoStore><<<grid, kThreads, 0, st>>>(in, o, H, W);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-#endif  // SVT_VARIANTS
-
-extern "C" int svt_census_words_first(const void* img, void* out, int H, int W, int ksize,
-                                      int wsize, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((W + 31) / 32, (H + 7) / 8);
-  census_first<<<grid, block, 0, (cudaStream_t)stream>>>((const float*)img, (int32_t*)out, H, W,
-                                                         ksize, wsize);
   return (int)cudaGetLastError();
 }

@@ -18,14 +18,7 @@
 // 90 us), at 1.98-1.755 GHz on 132 SMs: below the byte bound at every
 // production shape.
 //
-// What held the first port back: issue, and shared-memory bank conflicts.
-// A thread made 4 disparities at a time with a runtime division, a bounds
-// branch and a runtime nw loop each (~20 instructions an output byte); its
-// reads of the staged right window stepped -4 words between neighbouring
-// threads (4-way conflicts); a D that is not a multiple of 4 took a path of
-// one division and one 1-byte store an output byte.
-//
-// Design (cost_staged, the shipping path): a block owns TX columns of one
+// Design (cost_staged): a block owns TX columns of one
 // row (TX a power of two, 32-256, TX*D <= 48 KB where it can) and stages
 // their window of right census (TX + D - 1 columns, zero outside the image)
 // in shared memory. A warp's lanes take consecutive pixels; each lane holds
@@ -47,15 +40,11 @@
 // span is then written out as 16-byte stores, coalesced, with its head and
 // tail peeled to bytes: one store path for every D.
 //
-// What bounds it now: the ablations (bench_cuda.cost_volume_ablations)
-// show the copy-out alone at the byte bound and popc not setting the pace;
-// a block's phases (the window's loads, the runs, the copy-out) add up
-// rather than overlap. Direct 16-byte stores of each run (no span) and
-// persistent blocks that prefetch their next tile measured slower.
-//
-// cost_first is the design this kernel replaced, kept for timing beside it
-// (svt_cost_volume_first). Built with -DSVT_VARIANTS, the library also holds
-// the ablations (svt_cost_volume_ablation).
+// What bounds it: the copy-out alone runs at the byte bound and popc does
+// not set the pace; a block's phases (the window's loads, the runs, the
+// copy-out) add up rather than overlap. Direct 16-byte stores of each run
+// (no span) and persistent blocks that prefetch their next tile measured
+// slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,16 +91,7 @@ __device__ __forceinline__ void put_run(uint32_t* s_w, int sh, uint32_t o, int n
   }
 }
 
-// Ablations (built with -DSVT_VARIANTS; cost_staged<1, form>): the popc
-// replaced by a mask of the xor (kNoPopc: the same loads and stores, a
-// defined function), no census read and no run made (kNoRuns: the window
-// staged, zero runs put into the span, the span written out), the span not
-// written out (kNoCopy), the copy-out alone (kCopyOnly: nothing staged, no
-// runs), or each run stored straight to device memory as one 16-byte store,
-// no span (kDirect: D % 16 == 0 and a 16-byte aligned volume only).
-enum { kShip = 0, kNoPopc = 1, kNoRuns = 2, kNoCopy = 3, kCopyOnly = 4, kDirect = 5 };
-
-template <int NW, int AB = kShip>  // census words a pixel (0: runtime nw); ablation
+template <int NW>  // census words a pixel (0: runtime nw)
 __global__ void __launch_bounds__(kThreads) cost_staged(
     const int32_t* __restrict__ cl, const int32_t* __restrict__ cr, int8_t* __restrict__ out,
     int H, int W, int D, int nw, int min_d, int n_bits, int tx_log2, int sh) {
@@ -126,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) cost_staged(
   uint32_t* s_cr = smem;
   uint32_t* s_cl = s_cr + nw * pitch;  // runtime nw: the tile's left census
   uint32_t* s_w = s_cl + (NW ? 0 : nw * TX);  // the staged output span
-  for (int w = 0; w < (AB == kCopyOnly ? 0 : nw); ++w) {
+  for (int w = 0; w < nw; ++w) {
     const int32_t* row = cr + ((size_t)w * H + y) * W;
     for (int j = threadIdx.x; j < nwin; j += blockDim.x) {
       const int r = r0 + j;
@@ -141,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) cost_staged(
   __syncthreads();
 
   const int xx = threadIdx.x & (TX - 1);
-  if (AB != kCopyOnly && xx < nx) {
+  if (xx < nx) {
     const int x = x0 + xx;
     uint32_t cw[NW ? NW : 1];
 #pragma unroll
@@ -161,10 +141,7 @@ __global__ void __launch_bounds__(kThreads) cost_staged(
         for (int i = 0; i < 4; ++i) {
           const int t = 4 * k + i;
           uint32_t c = 0;
-          if (AB == kNoRuns) {
-          } else if (AB == kNoPopc) {
-            c = (cw[0] ^ wp[-t]) & 0x3fu;
-          } else if (NW) {
+          if (NW) {
 #pragma unroll
             for (int w = 0; w < NW; ++w) c += __popc(cw[w] ^ wp[w * pitch - t]);
           } else {
@@ -183,15 +160,10 @@ __global__ void __launch_bounds__(kThreads) cost_staged(
           if (d < d_lo || d > d_hi) pk[t >> 2] = (pk[t >> 2] & ~m) | (nb4 & m);
         }
       }
-      if (AB == kDirect)
-        *reinterpret_cast<uint4*>(span + xx * D + d0) = make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      else
-        put_run(s_w, sh, a0 + (uint32_t)(xx * D + d0), min(kRun, D - d0), pk);
+      put_run(s_w, sh, a0 + (uint32_t)(xx * D + d0), min(kRun, D - d0), pk);
     }
   }
-  if (AB == kDirect) return;
   __syncthreads();
-  if (AB == kNoCopy) return;
 
   // the span, from the 16-byte boundary at or before it, in 16-byte stores
   int8_t* base = span - a0;
@@ -213,74 +185,14 @@ __global__ void __launch_bounds__(kThreads) cost_staged(
   }
 }
 
-// The first port: a thread makes 4 disparities at a time (D % 4 == 0) or one
-// (else), with a division and a bounds branch each.
-constexpr int kFirstTX = 64;
-
-__device__ __forceinline__ int cost_at(const int32_t* s_cl, const int32_t* s_cr, int nr,
-                                       int nw, int xx, int d, int x0, int W, int D,
-                                       int min_d, int n_bits) {
-  const int r = x0 + xx - min_d - d;
-  if (r < 0 || r > W - 1) return n_bits;
-  const int j = xx + (D - 1) - d;  // column of r in the staged window
-  int acc = 0;
-  for (int w = 0; w < nw; ++w) acc += __popc(s_cl[w * kFirstTX + xx] ^ s_cr[w * nr + j]);
-  return acc;
-}
-
-__global__ void cost_first(const int32_t* __restrict__ cl, const int32_t* __restrict__ cr,
-                           int8_t* __restrict__ out, int H, int W, int D, int nw, int min_d,
-                           int n_bits) {
-  extern __shared__ int32_t smem_first[];
-  const int y = blockIdx.y;
-  const int x0 = blockIdx.x * kFirstTX;
-  const int nx = min(kFirstTX, W - x0);
-  const int nr = kFirstTX + D - 1;
-  const int r0 = x0 - min_d - (D - 1);
-  int32_t* s_cl = smem_first;
-  int32_t* s_cr = smem_first + nw * kFirstTX;
-  for (int i = threadIdx.x; i < nw * nx; i += blockDim.x) {
-    const int w = i / nx, xx = i - w * nx;
-    s_cl[w * kFirstTX + xx] = cl[((size_t)w * H + y) * W + x0 + xx];
-  }
-  const int nwin = nx + D - 1;
-  for (int i = threadIdx.x; i < nw * nwin; i += blockDim.x) {
-    const int w = i / nwin, j = i - w * nwin;
-    const int r = r0 + j;
-    s_cr[w * nr + j] = (r >= 0 && r < W) ? cr[((size_t)w * H + y) * W + r] : 0;
-  }
-  __syncthreads();
-  int8_t* base = out + ((size_t)y * W + x0) * D;
-  const int total = nx * D;
-  if ((D & 3) == 0) {
-    uint32_t* base4 = reinterpret_cast<uint32_t*>(base);
-    for (int q = threadIdx.x; q < total / 4; q += blockDim.x) {
-      const int i = q * 4;
-      const int xx = i / D, d = i - xx * D;
-      uint32_t packed = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int v = cost_at(s_cl, s_cr, nr, nw, xx, d + k, x0, W, D, min_d, n_bits);
-        packed |= (uint32_t)(v & 0xff) << (8 * k);
-      }
-      base4[q] = packed;
-    }
-  } else {
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int xx = i / D, d = i - xx * D;
-      base[i] = (int8_t)cost_at(s_cl, s_cr, nr, nw, xx, d, x0, W, D, min_d, n_bits);
-    }
-  }
-}
-
 int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
 }
 
-// One launch of cost_staged<NW, AB> with svt_cost_volume's arguments.
-template <int NW, int AB>
+// One launch of cost_staged<NW> with svt_cost_volume's arguments.
+template <int NW>
 int launch_cost(const void* cl, const void* cr, void* out, int H, int W, int D, int nw,
                 int min_d, int n_bits, int tx_log2, int sh, cudaStream_t st) {
   const int TX = 1 << tx_log2;
@@ -288,12 +200,12 @@ int launch_cost(const void* cl, const void* cr, void* out, int H, int W, int D, 
   const size_t span_words = ((size_t)15 + (size_t)TX * D + 3) / 4 + 4;
   const size_t smem = 4 * ((size_t)nw * ((TX + D - 1 + kGuard + 3) & ~3) +
                            (NW ? 0 : (size_t)nw * TX) + span_words + (span_words >> sh) + 4);
-  const int e = set_smem((const void*)cost_staged<NW, AB>, smem);
+  const int e = set_smem((const void*)cost_staged<NW>, smem);
   if (e) return e;
   const dim3 grid((W + TX - 1) / TX, H);
-  cost_staged<NW, AB><<<grid, threads, smem, st>>>((const int32_t*)cl, (const int32_t*)cr,
-                                                   (int8_t*)out, H, W, D, nw, min_d, n_bits,
-                                                   tx_log2, sh);
+  cost_staged<NW><<<grid, threads, smem, st>>>((const int32_t*)cl, (const int32_t*)cr,
+                                               (int8_t*)out, H, W, D, nw, min_d, n_bits,
+                                               tx_log2, sh);
   return (int)cudaGetLastError();
 }
 
@@ -306,38 +218,7 @@ extern "C" int svt_cost_volume(const void* cl, const void* cr, void* out, int H,
                                int nw, int min_d, int n_bits, int form, int tx_log2, int sh,
                                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (form == 1) return launch_cost<1, kShip>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-  if (form == 2) return launch_cost<2, kShip>(cl, cr, out, H, W, D, 2, min_d, n_bits, tx_log2, sh, st);
-  return launch_cost<0, kShip>(cl, cr, out, H, W, D, nw, min_d, n_bits, tx_log2, sh, st);
-}
-
-#ifdef SVT_VARIANTS
-// An ablation of cost_staged at nw = 1 (the forms above); the arguments are
-// svt_cost_volume's.
-extern "C" int svt_cost_volume_ablation(const void* cl, const void* cr, void* out, int H, int W,
-                                        int D, int min_d, int n_bits, int ablation, int tx_log2,
-                                        int sh, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (ablation) {
-    case kNoPopc: return launch_cost<1, kNoPopc>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-    case kNoRuns: return launch_cost<1, kNoRuns>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-    case kNoCopy: return launch_cost<1, kNoCopy>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-    case kCopyOnly: return launch_cost<1, kCopyOnly>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-    case kDirect:
-      if (D % 16 || reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
-      return launch_cost<1, kDirect>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-#endif  // SVT_VARIANTS
-
-extern "C" int svt_cost_volume_first(const void* cl, const void* cr, void* out, int H, int W,
-                                     int D, int nw, int min_d, int n_bits, void* stream) {
-  const size_t smem = (size_t)nw * (kFirstTX + kFirstTX + D - 1) * sizeof(int32_t);
-  const int e = set_smem((const void*)cost_first, smem);
-  if (e) return e;
-  const dim3 grid((W + kFirstTX - 1) / kFirstTX, H);
-  cost_first<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)cl, (const int32_t*)cr, (int8_t*)out, H, W, D, nw, min_d, n_bits);
-  return (int)cudaGetLastError();
+  if (form == 1) return launch_cost<1>(cl, cr, out, H, W, D, 1, min_d, n_bits, tx_log2, sh, st);
+  if (form == 2) return launch_cost<2>(cl, cr, out, H, W, D, 2, min_d, n_bits, tx_log2, sh, st);
+  return launch_cost<0>(cl, cr, out, H, W, D, nw, min_d, n_bits, tx_log2, sh, st);
 }

@@ -75,19 +75,13 @@
 //                ties to the smallest d. The band is D * 66 elements (132 KB
 //                at D=1024 int16); above 48 KB the kernel takes dynamic
 //                shared memory, its limit raised once per instance;
-//   kBoxes:      the shipping kernel (diagonal boxes), for the script's row;
-//   kBoxesStageOnly, kBoxesReduceOnly: ablations of the shipping kernel,
-//                its staging alone (no walk) and its walks alone (on
-//                whatever shared memory holds, nothing staged); they
-//                define no output.
+//   kBoxes:      the shipping kernel (diagonal boxes), for the script's row.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
 enum : int { kSpan = 0, kTilesVec = 1, kTilesElem = 2 };
-// the shipping kernel, or (measurement variants) with a part taken out
-enum : int { kWhole = 0, kStageOnly = 1, kReduceOnly = 2 };
 static constexpr int kTile = 32;             // planes a tile
 static constexpr int kU = 128;               // right pixels a block, a thread each
 static constexpr int kSpanMax = 48 * 1024;   // shared bytes of a kSpan block at most
@@ -180,7 +174,7 @@ __device__ __forceinline__ void walk_tile(const unsigned char* row0, int lane, i
 }
 
 // One block's work on row y: right pixels u0 .. u0 + kU - 1.
-template <typename T, int FORM, int ABL>
+template <typename T, int FORM>
 __device__ __forceinline__ void boxes_row(const T* __restrict__ s, int32_t* __restrict__ out,
                                           unsigned char* smem, int H, int W, int D, int d_valid,
                                           int y, int u0) {
@@ -195,24 +189,20 @@ __device__ __forceinline__ void boxes_row(const T* __restrict__ s, int32_t* __re
   if constexpr (FORM == kSpan) {
     const long long pix = (long long)D * sizeof(T);  // bytes an image column
     const int x1 = min(W, u0 + U + dv - 1);
-    int off = 0;
-    if constexpr (ABL != kReduceOnly)
-      off = stage_span(smem, (const unsigned char*)s, (long long)H * W * pix, (rowel + u0) * pix,
-                       (rowel + x1) * pix);
+    const int off = stage_span(smem, (const unsigned char*)s, (long long)H * W * pix,
+                               (rowel + u0) * pix, (rowel + x1) * pix);
     cp_async_wait_all();
     __syncthreads();
     // cell (x - u0, d) at off + ((x - u0) * D + d) * itemsize; the diagonal
     // steps D + 1 elements
-    if constexpr (ABL != kStageOnly)
-      for (int d0 = 0; d0 < dv; d0 += kTile)
-        walk_span<T>(smem + off + ((long long)(t + d0) * D + d0) * sizeof(T),
-                     (D + 1) * (int)sizeof(T), du - d0, 0x80000000u + d0, best);
+    for (int d0 = 0; d0 < dv; d0 += kTile)
+      walk_span<T>(smem + off + ((long long)(t + d0) * D + d0) * sizeof(T),
+                   (D + 1) * (int)sizeof(T), du - d0, 0x80000000u + d0, best);
   } else {
     // two buffers of ROWS rows of ROWB bytes: row r of tile d0 holds image
     // column u0 + d0 + r, planes d0 .. d0 + 31
     const int tiles = (dv + kTile - 1) / kTile;
     auto stage = [&](int tile) {
-      if constexpr (ABL == kReduceOnly) return;
       const int d0 = tile * kTile, x0 = u0 + d0;
       const int rows = min(ROWS, W - x0);
       unsigned char* dst = smem + (tile & 1) * ROWS * ROWB;
@@ -242,9 +232,8 @@ __device__ __forceinline__ void boxes_row(const T* __restrict__ s, int32_t* __re
         if (tile + 1 < tiles) stage(tile + 1);  // lands while this tile is walked
       }
       const int d0 = tile * kTile;
-      if constexpr (ABL != kStageOnly)
-        walk_tile<T>(smem + (tile & 1) * ROWS * ROWB + t * ROWB, t & 31, du - d0, 0x80000000u + d0,
-                     best);
+      walk_tile<T>(smem + (tile & 1) * ROWS * ROWB + t * ROWB, t & 31, du - d0, 0x80000000u + d0,
+                   best);
       if constexpr (FORM == kTilesElem) {
         if (tile + 1 < tiles) stage(tile + 1);
       }
@@ -255,14 +244,14 @@ __device__ __forceinline__ void boxes_row(const T* __restrict__ s, int32_t* __re
 
 // A block a span of kU right pixels (grid.x) and a row (grid.y); past
 // 65535 rows (grid.y's limit) a block takes rows gridDim.y apart.
-template <typename T, int FORM, int ABL = kWhole>
+template <typename T, int FORM>
 __global__ void __launch_bounds__(kU)
 right_disparity_boxes(const T* __restrict__ s, int32_t* __restrict__ out, int H, int W, int D,
                       int d_valid) {
   extern __shared__ __align__(16) unsigned char smem[];
   for (int y = blockIdx.y; y < H; y += gridDim.y) {
     if (y != (int)blockIdx.y) __syncthreads();  // every thread done with the last row's stage
-    boxes_row<T, FORM, ABL>(s, out, smem, H, W, D, d_valid, y, blockIdx.x * kU);
+    boxes_row<T, FORM>(s, out, smem, H, W, D, d_valid, y, blockIdx.x * kU);
   }
 }
 
@@ -270,7 +259,7 @@ static int imin(int a, int b) { return a < b ? a : b; }
 
 // tiles: 0 for the span form, else tiles of 32 planes, by cp.async where
 // every run is 16-byte aligned, by element loads elsewhere.
-template <typename T, int ABL = kWhole>
+template <typename T>
 static int launch_boxes(const void* s, int32_t* out, int H, int W, int D, int d_valid, int tiles,
                         cudaStream_t stream) {
   if (D > 65535) return (int)cudaErrorInvalidValue;  // a key holds d in 16 bits
@@ -288,13 +277,11 @@ static int launch_boxes(const void* s, int32_t* out, int H, int W, int D, int d_
   const dim3 grid((W + kU - 1) / kU, imin(H, 65535));
   const T* v = (const T*)s;
   if (form == kSpan)
-    right_disparity_boxes<T, kSpan, ABL><<<grid, kU, bytes, stream>>>(v, out, H, W, D, d_valid);
+    right_disparity_boxes<T, kSpan><<<grid, kU, bytes, stream>>>(v, out, H, W, D, d_valid);
   else if (form == kTilesVec)
-    right_disparity_boxes<T, kTilesVec, ABL><<<grid, kU, bytes, stream>>>(v, out, H, W, D,
-                                                                          d_valid);
+    right_disparity_boxes<T, kTilesVec><<<grid, kU, bytes, stream>>>(v, out, H, W, D, d_valid);
   else
-    right_disparity_boxes<T, kTilesElem, ABL><<<grid, kU, bytes, stream>>>(v, out, H, W, D,
-                                                                           d_valid);
+    right_disparity_boxes<T, kTilesElem><<<grid, kU, bytes, stream>>>(v, out, H, W, D, d_valid);
   return 0;
 }
 
@@ -315,8 +302,7 @@ extern "C" int svt_right_disparity(const void* s, void* out, int H, int W, int D
 
 #ifdef SVT_VARIANTS
 
-enum : int { kInPlace = 0, kTransposed = 1, kStaged = 2, kBoxes = 3, kBoxesStageOnly = 4,
-             kBoxesReduceOnly = 5 };
+enum : int { kInPlace = 0, kTransposed = 1, kStaged = 2, kBoxes = 3 };
 
 template <typename T, int VAR = kInPlace>
 __global__ void right_disparity_kernel(const T* __restrict__ s, int32_t* __restrict__ out, int H,
@@ -421,10 +407,6 @@ template <typename T>
 static int launch_variant(const void* s, int32_t* out, int H, int W, int D, int d_valid,
                           int tiles, int variant, cudaStream_t stream) {
   if (variant == kBoxes) return launch_boxes<T>(s, out, H, W, D, d_valid, tiles, stream);
-  if (variant == kBoxesStageOnly)
-    return launch_boxes<T, kStageOnly>(s, out, H, W, D, d_valid, tiles, stream);
-  if (variant == kBoxesReduceOnly)
-    return launch_boxes<T, kReduceOnly>(s, out, H, W, D, d_valid, tiles, stream);
   if (variant == kInPlace || variant == kTransposed) {
     const long long n = (long long)H * W;
     const unsigned blocks = (unsigned)((n + 255) / 256);
@@ -448,8 +430,8 @@ static int launch_variant(const void* s, int32_t* out, int H, int W, int D, int 
 }
 
 // One measurement variant (the enum): s is (H, W, D), or (D, H, W) for
-// kTransposed; itemsize 1 (int8) or 2 (int16); tiles for kBoxes and its
-// ablations (as svt_right_disparity takes it), ignored by the others.
+// kTransposed; itemsize 1 (int8) or 2 (int16); tiles for kBoxes (as
+// svt_right_disparity takes it), ignored by the others.
 extern "C" int svt_right_disparity_variant(const void* s, void* out, int H, int W, int D,
                                            int d_valid, int itemsize, int tiles, int variant,
                                            void* stream) {

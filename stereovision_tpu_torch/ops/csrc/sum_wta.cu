@@ -32,14 +32,7 @@
 // H100. Fewer instructions did help: the extraction is one prmt (or shift)
 // an element and the sum one expression a plane (two three-input adds),
 // which took the int8 kernel at D=320 on an H100 (700 W) from 0.5512 to
-// 0.4699 ms with no volume and from 0.6312 to 0.5847 with hwd
-// (chip_smoke.py's redesign phase, before and after).
-//
-// What held the first design back (sum_wta_first below, one warp a pixel,
-// lane l holding planes l, l + 32, ...): each load instruction fetched 1
-// byte a lane, 32 a warp, from each volume (10 loads a volume at D=320),
-// each store 2 bytes a lane, and 8 warps a block at up to 112 registers
-// kept few bytes in flight: ~1.59 TB/s of the 3.35.
+// 0.4699 ms with no volume and from 0.6312 to 0.5847 with hwd.
 //
 // Design (staged pixels, the design of wta_stats.cu widened to four
 // volumes): a block of 256 threads takes P consecutive pixels, whose planes
@@ -61,12 +54,6 @@
 // a (D, P + 2) transpose, P consecutive int16s a plane written out
 // together. Consecutive threads write consecutive pixels of each map: at
 // G > 1 the group leaders' results pass through shared memory first.
-//
-// Built with -DSVT_VARIANTS, the library also holds the first design
-// (svt_sum_wta_first, templated on the item size) and the shipping kernel
-// with parts taken out (svt_sum_wta_ablation, hwd): the four spans staged
-// and nothing else (kStageOnly), all but the volume's copy-out (kNoStore),
-// and the staging and the copy-out with nothing computed (kMoveOnly).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -85,7 +72,6 @@ static constexpr int kSlack = 128;
 static constexpr int kMaxShared = 96 * 1024;  // above the largest layout (~87 KB)
 
 enum : int { kEmitNone = 0, kEmitHWD = 1, kEmitDHW = 2 };
-enum : int { kShip = 0, kStageOnly = 1, kNoStore = 2, kMoveOnly = 3 };
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
@@ -202,7 +188,7 @@ __device__ __forceinline__ int out_value(int s, bool real) {
   return real ? (sizeof(T) == 1 ? s : min(s, kClamp)) : kClamp;
 }
 
-template <typename T, int Q, int EMIT, int AB = kShip>
+template <typename T, int Q, int EMIT>
 __global__ void __launch_bounds__(kThreads)
 sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __restrict__ vf,
                const T* __restrict__ vb, int16_t* __restrict__ s_o, float* __restrict__ best_o,
@@ -223,7 +209,6 @@ sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __re
     off[v] = v * L.region + stage(smem + v * L.region, (const unsigned char*)vols[v], total, b0, b1);
   cp_async_wait_all();
   __syncthreads();
-  if constexpr (AB == kStageOnly) return;
 
   // lane j of group g holds planes d0 .. d0 + Q - 1 of pixel pix0 + g; the
   // real ones are those below d_valid (<= D), the stored ones those below D
@@ -236,7 +221,7 @@ sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __re
   const int ph = (int)((uintptr_t)span & 15);
   int s[Q];
   int kmin = INT_MAX;
-  if (live && AB != kMoveOnly) {
+  if (live) {
     constexpr int NW = Q * (int)sizeof(T) / 4;
     const int at = g * row + d0 * (int)sizeof(T);
     const bool vec = ((off[0] | off[1] | off[2] | off[3] | row) & 15) == 0;
@@ -288,7 +273,7 @@ sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __re
   const int best = kmin >> log2dp;  // floor division by the power of two dp
   const int idx = kmin & (dp - 1);
   int comp = kNone;
-  if (live && AB != kMoveOnly) {
+  if (live) {
     const int t = d0 - idx + 1;  // plane i lies outside idx - 1 .. idx + 1 where t + i is not in [0, 2]
 #pragma unroll
     for (int i = 0; i < Q; ++i)
@@ -338,7 +323,6 @@ sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __re
     cp_o[p] = st[3 * P + tid];
     comp_o[p] = st[4 * P + tid];
   }
-  if constexpr (AB == kNoStore) return;
   if constexpr (EMIT == kEmitHWD) {
     // the span, from the 16-byte boundary at or before it, in 16-byte stores
     unsigned char* base = (unsigned char*)span - ph;
@@ -367,10 +351,10 @@ sum_wta_staged(const T* __restrict__ hf, const T* __restrict__ hb, const T* __re
 
 // Raise a kernel's dynamic shared-memory limit, once per instance (the first
 // launch; the runtime keeps the setting).
-template <typename T, int Q, int EMIT, int AB>
+template <typename T, int Q, int EMIT>
 static cudaError_t shared_limit_once() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(sum_wta_staged<T, Q, EMIT, AB>,
+      cudaFuncSetAttribute(sum_wta_staged<T, Q, EMIT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxShared);
   return err;
 }
@@ -382,31 +366,31 @@ struct Args {
   int D, d_valid, log2dp, log2g;
 };
 
-template <typename T, int Q, int EMIT, int AB>
+template <typename T, int Q, int EMIT>
 static int launch_q(const Args& a, cudaStream_t stream) {
-  const cudaError_t e = shared_limit_once<T, Q, EMIT, AB>();
+  const cudaError_t e = shared_limit_once<T, Q, EMIT>();
   if (e != cudaSuccess) return (int)e;
   const int P = kThreads >> a.log2g;
   const Layout L = layout(a.D, (int)sizeof(T), a.log2g, EMIT);
   const unsigned grid = (unsigned)((a.npix + P - 1) / P);
-  sum_wta_staged<T, Q, EMIT, AB><<<grid, kThreads, L.bytes, stream>>>(
+  sum_wta_staged<T, Q, EMIT><<<grid, kThreads, L.bytes, stream>>>(
       (const T*)a.hf, (const T*)a.hb, (const T*)a.vf, (const T*)a.vb, (int16_t*)a.s,
       (float*)a.best, (int32_t*)a.idx, (float*)a.cm, (float*)a.cp, (float*)a.comp, a.npix, a.D,
       a.d_valid, a.log2dp, a.log2g);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int EMIT, int AB>
+template <typename T, int EMIT>
 static int launch(const Args& a, int q, cudaStream_t stream) {
   switch (q) {
-    case 4: return launch_q<T, 4, EMIT, AB>(a, stream);
-    case 8: return launch_q<T, 8, EMIT, AB>(a, stream);
-    case 12: return launch_q<T, 12, EMIT, AB>(a, stream);
-    case 16: return launch_q<T, 16, EMIT, AB>(a, stream);
-    case 20: return launch_q<T, 20, EMIT, AB>(a, stream);
-    case 24: return launch_q<T, 24, EMIT, AB>(a, stream);
-    case 28: return launch_q<T, 28, EMIT, AB>(a, stream);
-    case 32: return launch_q<T, 32, EMIT, AB>(a, stream);
+    case 4: return launch_q<T, 4, EMIT>(a, stream);
+    case 8: return launch_q<T, 8, EMIT>(a, stream);
+    case 12: return launch_q<T, 12, EMIT>(a, stream);
+    case 16: return launch_q<T, 16, EMIT>(a, stream);
+    case 20: return launch_q<T, 20, EMIT>(a, stream);
+    case 24: return launch_q<T, 24, EMIT>(a, stream);
+    case 28: return launch_q<T, 28, EMIT>(a, stream);
+    case 32: return launch_q<T, 32, EMIT>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -421,12 +405,6 @@ static int log2_ceil(int D) {
 // cover D.
 static bool covers(int D, int log2g, int q) { return log2g >= 0 && log2g <= 5 && (q << log2g) >= D; }
 
-static Args make_args(const void* hf, const void* hb, const void* vf, const void* vb, void* s,
-                      void* best, void* idx, void* cm, void* cp, void* comp, long long npix,
-                      int D, int d_valid, int log2g) {
-  return Args{hf, hb, vf, vb, s, best, idx, cm, cp, comp, npix, D, d_valid, log2_ceil(D), log2g};
-}
-
 // emit: 0 none (s null), 1 (H, W, D) int16, 2 (D, H, W) int16; itemsize: 1
 // (int8 volumes) or 2 (int16); log2g and q: the design
 // (sgm_cuda.sum_wta_design): 2^log2g lanes a pixel, q planes a lane.
@@ -435,13 +413,13 @@ extern "C" int svt_sum_wta(const void* hf, const void* hb, const void* vf, const
                            int D, int d_valid, int emit, int itemsize, int log2g, int q,
                            void* stream) {
   if (!covers(D, log2g, q)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(hf, hb, vf, vb, s, best, idx, cm, cp, comp, npix, D, d_valid, log2g);
+  const Args a{hf, hb, vf, vb, s, best, idx, cm, cp, comp, npix, D, d_valid, log2_ceil(D), log2g};
   const cudaStream_t st = (cudaStream_t)stream;
 #define SVT_SUM_EMIT(T)                                                       \
   switch (emit) {                                                             \
-    case kEmitNone: return launch<T, kEmitNone, kShip>(a, q, st);             \
-    case kEmitHWD: return launch<T, kEmitHWD, kShip>(a, q, st);               \
-    case kEmitDHW: return launch<T, kEmitDHW, kShip>(a, q, st);               \
+    case kEmitNone: return launch<T, kEmitNone>(a, q, st);                    \
+    case kEmitHWD: return launch<T, kEmitHWD>(a, q, st);                      \
+    case kEmitDHW: return launch<T, kEmitDHW>(a, q, st);                      \
     default: return (int)cudaErrorInvalidValue;                               \
   }
   if (itemsize == 1) SVT_SUM_EMIT(int8_t)
@@ -449,137 +427,3 @@ extern "C" int svt_sum_wta(const void* hf, const void* hb, const void* vf, const
 #undef SVT_SUM_EMIT
   return (int)cudaErrorInvalidValue;
 }
-
-#ifdef SVT_VARIANTS
-
-// The shipping kernel (hwd) with a part taken out (the enum's forms); the
-// other arguments are svt_sum_wta's.
-extern "C" int svt_sum_wta_ablation(const void* hf, const void* hb, const void* vf,
-                                    const void* vb, void* s, void* best, void* idx, void* cm,
-                                    void* cp, void* comp, long long npix, int D, int d_valid,
-                                    int itemsize, int log2g, int q, int form, void* stream) {
-  if (!covers(D, log2g, q)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(hf, hb, vf, vb, s, best, idx, cm, cp, comp, npix, D, d_valid, log2g);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define SVT_SUM_FORM(T)                                                       \
-  switch (form) {                                                             \
-    case kStageOnly: return launch<T, kEmitHWD, kStageOnly>(a, q, st);        \
-    case kNoStore: return launch<T, kEmitHWD, kNoStore>(a, q, st);            \
-    case kMoveOnly: return launch<T, kEmitHWD, kMoveOnly>(a, q, st);          \
-    default: return (int)cudaErrorInvalidValue;                               \
-  }
-  if (itemsize == 1) SVT_SUM_FORM(int8_t)
-  if (itemsize == 2) SVT_SUM_FORM(int16_t)
-#undef SVT_SUM_FORM
-  return (int)cudaErrorInvalidValue;
-}
-
-// The first design: one warp a pixel, lane l holding planes l, l + 32, ...
-// (V of them), so each plane row of each volume is one 32-element read and
-// hwd's stores 64-byte rows; the minima are five-round __shfl_xor
-// butterflies; dhw's stores are one plane apart a lane.
-#define WARPS_PER_BLOCK 8
-
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL_MASK, v, o));
-  return v;
-}
-
-template <typename T, int V, int EMIT>
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
-sum_wta_first(const T* __restrict__ hf, const T* __restrict__ hb, const T* __restrict__ vf,
-              const T* __restrict__ vb, int16_t* __restrict__ s_o, float* __restrict__ best_o,
-              int32_t* __restrict__ idx_o, float* __restrict__ cm_o, float* __restrict__ cp_o,
-              float* __restrict__ comp_o, long long npix, int D, int d_valid, int log2dp) {
-  const long long pix = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (pix >= npix) return;  // warp-uniform
-  const long long base = pix * D;
-  const int cap = (1 << (30 - log2dp)) - 1;
-  int s[V];
-  int kmin = INT_MAX;
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const int d = v * 32 + lane;
-    if (d < D) {
-      const long long i = base + d;
-      s[v] = d < d_valid ? (int)hf[i] + (int)hb[i] + (int)vf[i] + (int)vb[i] : kMasked;
-      if constexpr (EMIT == kEmitHWD) s_o[i] = (int16_t)min(s[v], kClamp);
-      if constexpr (EMIT == kEmitDHW) s_o[(long long)d * npix + pix] = (int16_t)min(s[v], kClamp);
-      kmin = min(kmin, min(s[v], cap) * (1 << log2dp) + d);
-    }
-  }
-  kmin = warp_min(kmin);
-  const int best = kmin >> log2dp;  // floor division by the power of two dp
-  const int idx = kmin - best * (1 << log2dp);
-  int cm = kNone, cp = kNone, comp = kNone;
-#pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const int d = v * 32 + lane;
-    if (d < D) {
-      if (d == idx - 1) cm = s[v];
-      if (d == idx + 1) cp = s[v];
-      if (abs(d - idx) > 1) comp = min(comp, s[v]);
-    }
-  }
-  cm = warp_min(cm);
-  cp = warp_min(cp);
-  comp = warp_min(comp);
-  if (lane == 0) {
-    best_o[pix] = (float)best;
-    idx_o[pix] = idx;
-    cm_o[pix] = (float)cm;
-    cp_o[pix] = (float)cp;
-    comp_o[pix] = (float)comp;
-  }
-}
-
-template <typename T, int EMIT>
-static int launch_first(const Args& a, cudaStream_t stream) {
-  const dim3 block(32 * WARPS_PER_BLOCK);
-  const dim3 grid((unsigned)((a.npix + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
-  // planes a lane holds: ceil(D/32) rounded up to 1, 2, 4, 8, 12, 16, 24 or
-  // 32 (the extra ones are past D and skipped)
-  const int need = (a.D + 31) / 32;
-  const int V = need <= 2 ? need : need <= 4 ? 4 : need <= 8 ? 8 : need <= 16 ? (need + 3) / 4 * 4
-                                                                               : (need + 7) / 8 * 8;
-#define SVT_FIRST_CASE(VV)                                                                     \
-  case VV:                                                                                     \
-    sum_wta_first<T, VV, EMIT><<<grid, block, 0, stream>>>(                                    \
-        (const T*)a.hf, (const T*)a.hb, (const T*)a.vf, (const T*)a.vb, (int16_t*)a.s,         \
-        (float*)a.best, (int32_t*)a.idx, (float*)a.cm, (float*)a.cp, (float*)a.comp, a.npix,   \
-        a.D, a.d_valid, a.log2dp);                                                             \
-    break;
-  switch (V) {
-    SVT_FIRST_CASE(1) SVT_FIRST_CASE(2) SVT_FIRST_CASE(4) SVT_FIRST_CASE(8)
-    SVT_FIRST_CASE(12) SVT_FIRST_CASE(16) SVT_FIRST_CASE(24) SVT_FIRST_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;  // D > 1024
-  }
-#undef SVT_FIRST_CASE
-  return (int)cudaGetLastError();
-}
-
-// svt_sum_wta's function by the first design; the arguments are
-// svt_sum_wta's without the design.
-extern "C" int svt_sum_wta_first(const void* hf, const void* hb, const void* vf, const void* vb,
-                                 void* s, void* best, void* idx, void* cm, void* cp, void* comp,
-                                 long long npix, int D, int d_valid, int emit, int itemsize,
-                                 void* stream) {
-  const Args a = make_args(hf, hb, vf, vb, s, best, idx, cm, cp, comp, npix, D, d_valid, 0);
-  const cudaStream_t st = (cudaStream_t)stream;
-#define SVT_FIRST_EMIT(T)                                                     \
-  switch (emit) {                                                             \
-    case kEmitNone: return launch_first<T, kEmitNone>(a, st);                 \
-    case kEmitHWD: return launch_first<T, kEmitHWD>(a, st);                   \
-    case kEmitDHW: return launch_first<T, kEmitDHW>(a, st);                   \
-    default: return (int)cudaErrorInvalidValue;                               \
-  }
-  if (itemsize == 1) SVT_FIRST_EMIT(int8_t)
-  if (itemsize == 2) SVT_FIRST_EMIT(int16_t)
-#undef SVT_FIRST_EMIT
-  return (int)cudaErrorInvalidValue;
-}
-
-#endif  // SVT_VARIANTS

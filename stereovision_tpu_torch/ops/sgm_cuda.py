@@ -33,8 +33,10 @@ fallback from one to the other. A wrapper adds one to its count in
 :func:`launch_counts` each time it launches its kernel (a replayed CUDA
 graph adds its captured launches, :func:`add_launch_counts`);
 ``aggregate_dual`` counts its chain-mode launches apart, under
-``aggregate_dual_chain``. The measurement kernels of :mod:`.bench_cuda` add
-their counts to the same dict (:func:`register`).
+``aggregate_dual_chain``. The ports of the measurement scripts' variants
+(:mod:`.bench_cuda`: the ``aggregate_dual``, ``wta_stats_from_duals`` and
+``right_disparity`` families) add their counts to the same dict
+(:func:`register`).
 
 The kernels that keep a pixel's or a line's disparities in registers
 (``aggregate_dir``, ``aggregate_dual``, ``wta_stats_from_duals``, ``wta``,
@@ -176,9 +178,9 @@ def add_launch_counts(counts: dict[str, int]) -> None:
 
 
 def register(signatures: dict, counts) -> None:
-    """Add kernels beside the engine's (``ops.bench_cuda``'s measurement
-    kernels): their C entries, as in ``_SIGNATURES``, and their launch-count
-    names, set to 0."""
+    """Add kernels beside the engine's (``ops.bench_cuda``'s ports of the
+    measurement scripts' variants): their C entries, as in ``_SIGNATURES``,
+    and their launch-count names, set to 0."""
     _SIGNATURES.update(signatures)
     _launches.update({name: 0 for name in counts})
 

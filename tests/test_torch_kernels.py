@@ -330,42 +330,16 @@ def test_cost_design(D, nw):
     assert ways([4 * c for c in range(32)], 2) == 1
 
 
-@pytest.mark.parametrize("k,w", [(5, 5), (7, 5), (3, 3)])
-def test_census_words_first_on_the_cpu_is_the_plain_version(k, w):
-    img = torch.from_numpy(_image(37, 150))
-    before = sgm_cuda.launch_counts()
-    out = bench_cuda.census_words_first(img, k, w)
-    assert torch.equal(out, sgm_cuda.census_words_plain(img, k, w))
-    assert sgm_cuda.launch_counts() == before
-
-
-@pytest.mark.parametrize("min_d", [0, 4])
-def test_cost_volume_first_on_the_cpu_is_the_plain_version(min_d):
-    cl, cr = (sgm_cuda.census_words(torch.from_numpy(_image(24, 140))) for _ in range(2))
-    before = sgm_cuda.launch_counts()
-    out = bench_cuda.cost_volume_first(cl, cr, 40, min_d, 24)
-    assert torch.equal(out, sgm_cuda.cost_volume_plain(cl, cr, 40, min_d, 24))
-    assert sgm_cuda.launch_counts() == before
-
-
 @pytest.mark.parametrize("axis", [0, 1])
 def test_earlier_rdisp_and_lohi_designs_on_the_cpu_are_the_plain_versions(axis):
-    """``right_disparity``'s ``in_place`` variant and
-    ``nearest_valid_lohi_chunks`` on CPU tensors are the plain versions and
-    launch nothing."""
+    """``right_disparity``'s earlier design (the ``in_place`` variant of
+    ``bench_rdisp``) on CPU tensors is the plain version and launches
+    nothing, at d_valid = D and below it."""
     s = torch.from_numpy(RNG.integers(-128, 127, size=(9, 70, 40)).astype(np.int8))
-    d = torch.from_numpy(RNG.uniform(0, 64, size=(37, 150)).astype(np.float32))
-    v = torch.from_numpy(RNG.uniform(size=(37, 150)) < 0.05)
-    up = torch.from_numpy(RNG.uniform(0, 64, size=(37, 150)).astype(np.float32))
     before = sgm_cuda.launch_counts()
     assert torch.equal(bench_cuda.right_disparity_variants(s, "in_place", 40 - 7 * axis),
                        sgm_cuda.right_disparity_plain(s, 40 - 7 * axis))
-    got = bench_cuda.nearest_valid_lohi_chunks(d, v, up, axis)
-    want = sgm_cuda.nearest_valid_lohi_plain(d, v, up, axis)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert sgm_cuda.launch_counts() == before
-    with pytest.raises(ValueError):
-        bench_cuda.nearest_valid_lohi_chunks(d, v, up, 2)
 
 
 @pytest.mark.parametrize("H,W,D,itemsize,d_valid,design", [
@@ -424,43 +398,6 @@ def test_nearest_lohi_design(H, W, axis, design):
     else:
         assert threads // 32 * 8 == min(64, -(-H // 8) * 8)
     assert sgm_cuda._lohi_args(H, W, axis) == (H, W, axis, threads)
-
-
-def test_right_disparity_ablations_plain_and_arguments():
-    """The ablations define no output (None on the CPU, no launch) and
-    refuse an unknown form or d_valid."""
-    s = torch.zeros((3, 20, 8), dtype=torch.int8)
-    before = sgm_cuda.launch_counts()
-    assert all(bench_cuda.right_disparity_ablations(s, form) is None
-               for form in bench_cuda.RDISP_ABLATIONS)
-    assert sgm_cuda.launch_counts() == before
-    with pytest.raises(ValueError):
-        bench_cuda.right_disparity_ablations(s, "no_redux")
-    with pytest.raises(ValueError):
-        bench_cuda.right_disparity_ablations(s, "stage_only", 9)
-
-
-def test_census_and_cost_ablations_plain_and_arguments():
-    img = torch.from_numpy(_image(9, 21))
-    assert torch.equal(bench_cuda.census_words_ablations(img, "stage_only"),
-                       torch.zeros((1, 9, 21), dtype=torch.int32))
-    assert bench_cuda.census_words_ablations(img, "no_store") is None
-    cl, cr = (sgm_cuda.census_words(torch.from_numpy(_image(9, 21))) for _ in range(2))
-    # no_popc: the xor's low 6 bits where the column is inside, max_cost outside
-    vol = bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "no_popc")
-    assert vol.shape == (9, 21, 7) and vol.dtype == torch.int8
-    assert torch.equal(vol[:, 10, 3], ((cl[0, :, 10] ^ cr[0, :, 5]) & 0x3F).to(torch.int8))
-    assert bool((vol[:, 1, 0] == 24).all())
-    for form in ("no_runs", "no_copy", "copy_only"):
-        assert bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, form) is None
-    assert torch.equal(bench_cuda.cost_volume_ablations(cl, cr, 16, 2, 24, "direct"),
-                       sgm_cuda.cost_volume_plain(cl, cr, 16, 2, 24))
-    with pytest.raises(ValueError):
-        bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "direct")
-    with pytest.raises(ValueError):
-        bench_cuda.census_words_ablations(img, "no_compare")
-    with pytest.raises(ValueError):
-        bench_cuda.cost_volume_ablations(cl, cr, 7, 2, 24, "no_popcount")
 
 
 def test_aggregate_dual_rejects_bad_arguments():
@@ -577,20 +514,6 @@ def test_variant_libraries_build_from_the_shipping_sources():
         assert _build.source(name) == _build.CSRC / f"{src}.cu" and src in _build.KERNELS
         assert "SVT_VARIANTS" in _build.source(name).read_text()
         assert _build.library_path(name) != _build.library_path(src)
-
-
-def test_staged_ablations_plain_and_arguments():
-    """The staged kernel's ablations: no_recurrence stores the cost (int8,
-    clamped at 127) in both directions; the other forms define no values;
-    an unknown form or axis raises on any device."""
-    cost = torch.from_numpy(RNG.integers(-128, 128, size=(5, 6, 7)).astype(np.int8))
-    lf, lb = bench_cuda.aggregate_staged_variants(cost, "no_recurrence")
-    assert torch.equal(lf, cost) and torch.equal(lb, cost)
-    assert bench_cuda.aggregate_staged_variants(cost, "stage_only") is None
-    assert bench_cuda.aggregate_staged_variants(cost, "scan_only", axis=1) is None
-    for bad in (dict(form="no_such"), dict(form="scan_only", axis=2)):
-        with pytest.raises(ValueError):
-            bench_cuda.aggregate_staged_variants(cost, **bad)
 
 
 def _meta(shape, dtype):
@@ -712,57 +635,6 @@ def test_cost_volume_kernel(cuda, D, min_d, k, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 107, 320])
-def test_census_and_cost_ablations_kernel(cuda, D):
-    """The ablations with a defined output equal their plain versions; each
-    launch is counted."""
-    img = torch.from_numpy(_image(37, 426)).to(cuda)
-    before = sgm_cuda.launch_counts()
-    for form in bench_cuda.CENSUS_ABLATIONS:
-        got = bench_cuda.census_words_ablations(img, form)
-        want = bench_cuda.census_words_ablations_plain(img, form)
-        assert want is None or torch.equal(got, want)
-    cl, cr = sgm_cuda.census_words(img), sgm_cuda.census_words(img.roll(7, 1).contiguous())
-    forms = [f for f in bench_cuda.COST_ABLATIONS if f != "direct" or D % 16 == 0]
-    for form in forms:
-        got = bench_cuda.cost_volume_ablations(cl, cr, D, 3, 24, form)
-        want = bench_cuda.cost_volume_ablations_plain(cl, cr, D, 3, 24, form)
-        assert want is None or torch.equal(got, want)
-    torch.cuda.synchronize()
-    after = sgm_cuda.launch_counts()
-    assert after["census_words_ablations"] == before["census_words_ablations"] + 2
-    assert after["cost_volume_ablations"] == before["cost_volume_ablations"] + len(forms)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("D,min_d", [(32, 0), (107, 4), (320, -3)])
-def test_first_designs_equal_the_shipping_kernels(cuda, D, min_d):
-    """bench_cuda's first-design census and cost kernels, and the earlier
-    designs of right_disparity (the ``in_place`` variant, on the cost
-    volume as an int8 sum) and nearest_valid_lohi (chunk walks, both axes),
-    counted apart, give the shipping kernels' outputs."""
-    img = torch.from_numpy(_image(37, 426)).to(cuda)
-    before = sgm_cuda.launch_counts()
-    cl = bench_cuda.census_words_first(img)
-    assert torch.equal(cl, sgm_cuda.census_words(img))
-    cr = sgm_cuda.census_words(img.roll(5, 1).contiguous())
-    cost = bench_cuda.cost_volume_first(cl, cr, D, min_d, 24)
-    assert torch.equal(cost, sgm_cuda.cost_volume(cl, cr, D, min_d, 24))
-    assert torch.equal(bench_cuda.right_disparity_variants(cost, "in_place", D - min_d % 7),
-                       sgm_cuda.right_disparity(cost, D - min_d % 7))
-    valid = img > 200
-    for axis in (0, 1):
-        got = bench_cuda.nearest_valid_lohi_chunks(img, valid, img * 0.5, axis)
-        want = sgm_cuda.nearest_valid_lohi(img, valid, img * 0.5, axis)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
-    torch.cuda.synchronize()
-    after = sgm_cuda.launch_counts()
-    for name, n in (("census_words_first", 1), ("cost_volume_first", 1),
-                    ("right_disparity_variants", 1), ("nearest_valid_lohi_chunks", 2)):
-        assert after[name] == before[name] + n
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 45, 320])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
 @pytest.mark.parametrize("axis", [0, 1])
@@ -802,7 +674,7 @@ def test_speckle_counts_kernel_paths(cuda, k, nbins, shape):
 @pytest.mark.cuda
 def test_speckle_design_follows_k_and_nbins(cuda):
     """The column counts hold k ≤ 31 and nbins ≤ 16; the direct form
-    takes the rest, and its measurement entry takes any k and nbins."""
+    takes the rest."""
     for k, nbins in [(1, 0), (15, 13), (31, 16), (4, 6)]:
         assert sgm_cuda.speckle_design(k, nbins) == "columns"
     for k, nbins in [(33, 6), (15, 17), (45, 300), (3, 64)]:
@@ -811,7 +683,6 @@ def test_speckle_design_follows_k_and_nbins(cuda):
     for k, nbins in [(15, 13), (33, 6), (31, 16), (15, 17)]:
         want = sgm_cuda.speckle_counts_plain(dv, k, 32.0, nbins)
         assert torch.equal(sgm_cuda.speckle_counts(dv, k, 32.0, nbins), want)
-        assert torch.equal(bench_cuda.speckle_counts_direct(dv, k, 32.0, nbins), want)
 
 
 @pytest.mark.cuda
@@ -925,23 +796,6 @@ def test_right_disparity_kernel(cuda, dtype, D, d_valid, shape, values):
     torch.cuda.synchronize()
     assert sgm_cuda.launch_counts()["right_disparity"] == before + 1
     assert torch.equal(got, sgm_cuda.right_disparity_plain(s, d_valid))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,W", [(torch.int8, 32, 300), (torch.int8, 107, 426),
-                                       (torch.int16, 320, 260), (torch.int16, 107, 300)])
-def test_right_disparity_ablations_kernel(cuda, dtype, D, W):
-    """Each ablation launches (counted apart) in each staging form: the
-    span, 16-byte tiles, element tiles."""
-    s = torch.randint(0, 100, (7, W, D), dtype=dtype).to(cuda)
-    before = sgm_cuda.launch_counts()
-    for form in bench_cuda.RDISP_ABLATIONS:
-        out = bench_cuda.right_disparity_ablations(s, form)
-        assert out.shape == (7, W) and out.dtype == torch.int32
-    torch.cuda.synchronize()
-    after = sgm_cuda.launch_counts()
-    assert after["right_disparity_ablations"] == before["right_disparity_ablations"] + 2
-    assert after["right_disparity"] == before["right_disparity"]
 
 
 @pytest.mark.cuda
@@ -1237,27 +1091,6 @@ def test_aggregate_dual_kernel_any_values(cuda, p1, p2, D):
         assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", [32, 107, 320])
-@pytest.mark.parametrize("axis", [0, 1])
-def test_aggregate_staged_ablations_kernel(cuda, axis, D):
-    """no_recurrence is exact against its plain version; the other two
-    forms launch (counted) and define no values; past 384 disparities the
-    ablations refuse before any launch."""
-    cost = torch.from_numpy(RNG.integers(0, 61, size=(37, 45, D)).astype(np.int8)).to(cuda)
-    before = sgm_cuda.launch_counts()["aggregate_staged_variants"]
-    for form in bench_cuda.STAGED_FORMS:
-        got = bench_cuda.aggregate_staged_variants(cost, form, axis=axis)
-        torch.cuda.synchronize()
-        want = bench_cuda.aggregate_staged_variants_plain(cost, form)
-        if want is not None:
-            assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert sgm_cuda.launch_counts()["aggregate_staged_variants"] == before + 3
-    with pytest.raises(NotImplementedError, match="384"):
-        bench_cuda.aggregate_staged_variants(torch.zeros((2, 3, 385), dtype=torch.int8,
-                                                         device=cuda), "scan_only")
-
-
 def _edge_offsets(h, w, max_offset):
     """Offsets at every edge of the range, row by row: off = x (the first
     column), max_offset − 1, negative, ≥ max_offset, then random ones."""
@@ -1423,38 +1256,6 @@ def test_sum_wta_kernel_ties_and_signs(cuda, emit, D, d_valid, dtype, lo, hi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,H,W,D,d_valid", SUM_CASES[::3])
-@pytest.mark.parametrize("emit", list(sgm_cuda.SUM_EMITS))
-def test_sum_wta_first_design_kernel(cuda, emit, dtype, H, W, D, d_valid):
-    """The first design (a warp a pixel, templated on the item size) computes
-    the shipping kernel's function."""
-    vols = _sum_volumes(dtype, H, W, D, device=cuda)
-    before = sgm_cuda.launch_counts()["sum_wta_first"]
-    got = bench_cuda.sum_wta_first(*vols, d_valid=d_valid, emit=emit)
-    torch.cuda.synchronize()
-    assert sgm_cuda.launch_counts()["sum_wta_first"] == before + 1
-    _assert_sum_equal(got, sgm_cuda.sum_wta_fused_plain(*vols, d_valid=d_valid, emit=emit))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,H,W,D,d_valid", SUM_CASES[1::4])
-@pytest.mark.parametrize("form", list(bench_cuda.SUM_ABLATIONS))
-def test_sum_wta_ablations_kernel(cuda, form, dtype, H, W, D, d_valid):
-    """Each ablation launches; no_store's statistics are the plain ones."""
-    vols = _sum_volumes(dtype, H, W, D, device=cuda)
-    before = sgm_cuda.launch_counts()["sum_wta_ablations"]
-    got = bench_cuda.sum_wta_ablations(*vols, form, d_valid)
-    torch.cuda.synchronize()
-    assert sgm_cuda.launch_counts()["sum_wta_ablations"] == before + 1
-    want = bench_cuda.sum_wta_ablations_plain(*(v.cpu() for v in vols), form, d_valid)
-    if want is None:
-        assert got is None
-    else:
-        assert got[0].shape == (H, W, D) and got[0].dtype == torch.int16
-        assert all(torch.equal(g.cpu(), w) for g, w in zip(got[1:], want[1:]))
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("change", [{"lr_max_diff": -1}, {}, {"p1": 7.0, "p2": 110.0}])
 def test_full_search_frames_launch_sum_wta_once(cuda, monkeypatch, change):
     """The full search (paths=4; LR off, on, and int16 path volumes) sends
@@ -1488,8 +1289,6 @@ def test_measurement_kernels_reject_bad_inputs(cuda):
     i32 = torch.zeros((4, 5, 32), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
         bench_cuda.sum_wta(i32, i32, i32, i32)
-    with pytest.raises(TypeError):
-        bench_cuda.sum_wta_first(i32, i32, i32, i32)
     with pytest.raises(TypeError):
         bench_cuda.aggregate_dual_variants(i16, "shipping")
     with pytest.raises(TypeError):
