@@ -20,10 +20,13 @@ resolves to the statistics kernel (:func:`stereo.autotune.tune_stats_impl`).
 rescaled and rectified anew (:func:`_rescale_calibration`);
 ``exact_speckle`` replaces the engine's windowed speckle approximation by
 the exact connected-component filter on the same device
-(:func:`stereo.sgm.exact_speckle_postpass`). Under a profile each stage of
-a call is a span (``depth.upload``, ``depth.rectify``, ``depth.engine``,
-``depth.metric``, ``depth.exact_speckle``), and each wait of the host on
-the card a ``sync.*`` span (:func:`utils.profiling.annotate`).
+(:func:`stereo.sgm.exact_speckle_postpass`). On a card the uint8 pair
+goes up through pinned memory without a host wait and is cast to float32
+there, so a call returns while the card still runs the previous frame.
+Under a profile each stage of a call is a span (``depth.upload``,
+``depth.rectify``, ``depth.engine``, ``depth.metric``,
+``depth.exact_speckle``), and each wait of the host on the card a
+``sync.*`` span (:func:`utils.profiling.annotate`).
 
 ``FusedPipeline`` runs stereo (the hierarchical engine), MidasSmall and
 flow depth on the rectified pair, calibrates them against each other and
@@ -104,13 +107,15 @@ class DepthPipeline:
         return cls(cal, params, **kw)
 
     def _upload(self, img):
-        """An image as float32 on the device. From host memory, pinned or
-        not, the cast happens on the host and the copy blocks: the host
-        waits for the card (a ``sync.upload`` span)."""
-        if self.device.type != "cuda" or (torch.is_tensor(img) and img.is_cuda):
+        """An image as float32 on the device. On a card, an image in host
+        memory goes up in its own dtype (uint8: a quarter of the float32
+        bytes) through a pinned buffer the program owns, without a host
+        wait, and is cast on the card (:func:`utils.backend.upload`); the
+        caller may reuse its own buffer, pinned or not, as soon as the call
+        returns. On the CPU the image is cast where it is."""
+        if self.device.type != "cuda":
             return torch.as_tensor(img, dtype=torch.float32, device=self.device)
-        with annotate("sync.upload"):
-            return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        return upload(img, self.device).to(torch.float32)
 
     def _run(self, left, right):
         h, w = self.proc_size[1], self.proc_size[0]

@@ -27,13 +27,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def upload(x, device: torch.device) -> torch.Tensor:
-    """A host frame (array or CPU tensor, any dtype) → a tensor on
-    ``device`` without a host wait: copied through pinned memory,
+    """A host frame (array or CPU tensor, any dtype) → a tensor of its dtype
+    on ``device`` without a host wait: copied through pinned memory,
     asynchronously, where ``device`` is a card; a tensor already on
-    ``device`` passes through."""
+    ``device`` passes through.
+
+    A host frame, pinned or not, is first copied into a pinned block of the
+    program's, which PyTorch's caching host allocator keeps until the copy
+    to the card is done, so the caller may overwrite its frame as soon as
+    this returns."""
     t = x if torch.is_tensor(x) else torch.from_numpy(np.ascontiguousarray(x))
     if t.device == device:
         return t
     if device.type == "cuda" and t.device.type == "cpu":
-        t = t.pin_memory()
+        t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
     return t.to(device, non_blocking=True)
