@@ -14,6 +14,20 @@ same device, and the last line of standard output is the result; the
 numbers compared, each beside its limit, are the last lines of standard
 error.
 
+A system that carries state from frame to frame offers ``snapshot()``,
+and its reference ``step(state, *inputs) -> (outputs, next state)``,
+``initial_state()`` and ``start_numbers``: each kept frame is computed
+from the program's own state before it, its outputs compared with what the
+timed path put on the host and the reference's next state with the
+program's after it (so errors do not pile up across frames and a wrong
+update of the state still fails), and the state the program starts from
+with the reference's. The reference's ``step`` is also handed the program's
+state after the frame (``follow``), with which it may choose among
+outcomes that its equations leave to rounding; a reference module's
+``notes(ref)``, where it has one, gives lines for standard error on what
+it chose. A system without ``snapshot()`` is checked frame by
+frame with the reference's call alone.
+
 With ``--trace 1`` the result carries the cell's per-layer metrics, read
 from a ``torch.profiler`` trace of a stretch of the window and from the
 harness's own spans, instead of its end-to-end ones.
@@ -128,7 +142,8 @@ def main(argv=None, started: float | None = None, catalog: Catalog | None = None
                                                                    dev)
     marks.append(("inputs", time.monotonic()))
     sink = window.Sink(sut.outputs, int(traffic["check_frames"]),
-                       np.random.default_rng(np.random.SeedSequence(args.seed % (1 << 64))), dev)
+                       np.random.default_rng(np.random.SeedSequence(args.seed % (1 << 64))), dev,
+                       snapshot=getattr(sut, "snapshot", None))
 
     def one(j):
         token = sink.put(call(*inputs[j % len(inputs)]))
@@ -163,6 +178,7 @@ def main(argv=None, started: float | None = None, catalog: Catalog | None = None
         say(f"forbidden modules loaded: {', '.join(found)}")
         return 3
     kept = sink.outputs_kept()
+    states, start = sink.states_kept(), sink.start
     sut.close()
     del sut, call, sink
     if dev.type == "cuda":
@@ -198,12 +214,25 @@ def main(argv=None, started: float | None = None, catalog: Catalog | None = None
     per_frame = []
     t_check = time.perf_counter()
     for index, got in kept.items():
-        want = [t.float().cpu().numpy() for t in ref(*inputs[index % len(inputs)])]
-        per_frame.append(reference.numbers(got, want, limits))
-    say(f"check: {len(per_frame)} frames {sorted(kept)} against the reference in "
-        f"{time.perf_counter() - t_check:.3f} s")
+        if start is None:
+            want = [t.float().cpu().numpy() for t in ref(*inputs[index % len(inputs)])]
+            per_frame.append(reference.numbers(got, want, limits))
+            continue
+        # a stateful system: the frame from the program's own state before
+        # it, and the reference's next state against the program's after it
+        before, after = states[index]
+        want, want_next = ref.step(before, *inputs[index % len(inputs)], follow=after)
+        want = [t.float().cpu().numpy() for t in want]
+        per_frame.append(reference.numbers(got, want, limits, after, want_next))
+    if start is not None:  # the state the program starts from, before its first call
+        per_frame.append(reference.start_numbers(start, ref.initial_state(), limits))
+    say(f"check: {len(kept)} frames {sorted(kept)}{'' if start is None else ' and the start'}"
+        f" against the reference in {time.perf_counter() - t_check:.3f} s")
+    for line in getattr(reference, "notes", lambda r: [])(ref):
+        say(line)
+    del states, start
     ok, check = (compare.verdict(compare.worst(per_frame, reference.NAMES), limits,
-                                 reference.NAMES) if per_frame else (False, {}))
+                                 reference.NAMES) if kept else (False, {}))
     failed = sum(1 for r in records if r.done is None)
     ok = ok and failed == 0
 

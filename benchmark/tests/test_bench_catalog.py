@@ -9,7 +9,7 @@ import torch
 
 from benchmark import harness
 from benchmark.catalog import Catalog
-from benchmark.conftest import tiny_copy
+from benchmark.conftest import tiny_copy, with_fused
 
 
 def test_the_spec_names_files_that_exist():
@@ -40,7 +40,9 @@ def test_metric_names_resolve_to_their_files():
     assert [m["name"] for m in cat.metrics("full-cam60", False)] == ["latency_p50_ms", "setup_s"]
     assert [m["name"] for m in cat.metrics("prod-cam20", False)] == ["latency_p50_ms", "setup_s"]
     assert [m["name"] for m in cat.metrics("full-replay", True)] == [
-        "call_host_ms.replay", "engine_roofline.replay", "idle_share.replay"]
+        "call_host_ms.replay", "engine_roofline.replay", "idle_share.replay",
+        "upload_device_ms.replay", "host_syncs.replay", "graph_replays.replay"]
+    assert [m["name"] for m in cat.metrics("dpt-mono", False)] == ["frames_per_s", "setup_s"]
 
 
 NEW_FILES = {
@@ -129,3 +131,32 @@ def test_a_new_cell_loop_generator_system_and_metric_by_files_alone(tmp_path, ca
         want = {"frames_done"} if traced else {"frames_per_s", "setup_s"}
         assert set(r["metrics"]) == want
     assert cat.module("systems", "depth_again").built == ["tiny_full_again"] * 2
+
+
+def test_the_fused_cell_resolves_in_a_copy_of_the_spec_that_holds_it():
+    """The fused cell's entries (``conftest.FUSED``) are not in
+    ``BENCHMARK.json``; a copy of the spec that holds them
+    (``with_fused``) finds every file they name, and its own cells read what
+    they read without them."""
+    cat = Catalog()
+    spec = json.loads(cat.spec_path.read_text())
+    assert "fused-live" not in {w["name"] for w in spec["workloads"]}
+    cat.spec = with_fused(spec)
+    assert with_fused(cat.spec) == cat.spec  # the entries are added once
+    cell = cat.cell("fused-live")
+    config = cat.config(cell["config"])
+    assert (cat.root.parent / cat.spec["configs"][-1]["file"]).is_file()
+    assert cat.traffic(cell["traffic"])["loop"] == "closed" and cat.limits(config["name"])
+    assert [m["name"] for m in cat.metrics("fused-live", False)] == ["frames_per_s", "setup_s"]
+    assert [m["name"] for m in cat.metrics("fused-live", True)] == [
+        "call_host_ms.fused", "idle_share.fused", "net_device_ms.fused",
+        "stereo_device_ms.fused", "other_device_ms.fused", "mfu.fused"]
+    assert all(callable(cat.reader(m["name"])) for m in cat.metrics("fused-live", True))
+    assert cat.reader("mfu.fused") is not cat.reader("mfu.mono")
+    for name in [w["name"] for w in spec["workloads"]]:
+        for traced in (False, True):
+            assert ([m["name"] for m in cat.metrics(name, traced)]
+                    == [m["name"] for m in Catalog().metrics(name, traced)])
+    for key in ("configs", "workloads"):
+        for e in cat.spec[key]:
+            assert len(e["why"]) <= 200 and len(e.get("source", "")) <= 200

@@ -12,7 +12,8 @@ BENCH = Path(__file__).resolve().parents[1]
 REPO = BENCH.parent
 # the yardstick: what decides correct and what the metrics count
 YARDSTICK = ("references/depth_maps.py", "compare.py", "work.py", "generators/scene.py",
-             "depth_config.py", "stats.py", "timeline.py")
+             "depth_config.py", "stats.py", "timeline.py", "references/fused_frame.py",
+             "fused_work.py", "generators/scene_pingpong.py")
 
 
 def test_names_are_compared_whole():

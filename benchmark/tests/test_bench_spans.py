@@ -1,6 +1,6 @@
 """The readers of the program's own spans on made-up traces:
-``upload_device_ms``, ``host_syncs``, ``search_device_ms`` and
-``stages_device_ms`` read the ``depth.*``, ``sgm.*`` and ``sync.*`` spans
+``upload_device_ms``, ``host_syncs``, ``stereo_device_ms`` and
+``other_device_ms`` read the ``depth.*``, ``sgm.*`` and ``sync.*`` spans
 that the program opens; a program without them (the harness's ``frame`` and
 ``call`` spans and the system module's ``engine`` alone) reads nothing."""
 
@@ -11,7 +11,7 @@ from benchmark.catalog import Catalog
 from benchmark.harness import Context
 from benchmark.window import Frame
 
-NEW = ("upload_device_ms", "host_syncs", "search_device_ms", "stages_device_ms")
+NEW = ("upload_device_ms", "host_syncs", "stereo_device_ms", "other_device_ms")
 
 
 def _ev(cat, name, ts_us, dur_us, corr=None, tid=1):
@@ -24,8 +24,9 @@ def _ev(cat, name, ts_us, dur_us, corr=None, tid=1):
 def made_up_trace(program_spans=True):
     """Two frames of 10 ms, 10 ms apart, each one call: an upload of two
     images (a copy of 200 µs each, each in a ``sync.upload`` span), and in
-    the engine a search (a 2 ms kernel) and a stage outside it (a 500 µs
-    kernel), the same work under the system module's ``engine`` span."""
+    the engine a replay of its CUDA graph (a 2 ms kernel) and a stage
+    outside it (a 500 µs kernel), the same work under the system module's
+    ``engine`` span."""
     events = []
     for k, t in enumerate((0, 20000)):
         c = 100 * k
@@ -50,7 +51,7 @@ def made_up_trace(program_spans=True):
                 _ev("user_annotation", "sync.upload", t + 190, 300),
                 _ev("user_annotation", "sync.upload", t + 490, 300),
                 _ev("user_annotation", "depth.engine", t + 990, 5020),
-                _ev("user_annotation", "sgm.search", t + 1200, 2000),
+                _ev("user_annotation", "sgm.replay", t + 1200, 2000),
                 _ev("user_annotation", "sgm.median", t + 3900, 300),
             ]
     return events
@@ -70,12 +71,12 @@ def test_the_program_spans_readers(suffix):
     read = {name: cat.reader(f"{name}.{suffix}")(ctx) for name in NEW}
     assert read["upload_device_ms"] == pytest.approx(0.4)    # two 200 µs copies a call
     assert read["host_syncs"] == pytest.approx(2.0)          # two sync.upload a call
-    assert read["search_device_ms"] == pytest.approx(2.0)
-    assert read["stages_device_ms"] == pytest.approx(0.5)
-    # the program's spans cover the engine: together they read the engine span's device ms
-    engine = ctx.trace["spans"]["engine"]
-    assert read["search_device_ms"] + read["stages_device_ms"] == pytest.approx(
-        1e3 * engine["device_s"] / engine["calls"])
+    assert read["stereo_device_ms"] == pytest.approx(2.0)    # the replay's kernel
+    assert read["other_device_ms"] == pytest.approx(0.9)     # the copies and the stage
+    # the call's device ms split between the engine's replay and the rest
+    call = ctx.trace["spans"]["call"]
+    assert read["stereo_device_ms"] + read["other_device_ms"] == pytest.approx(
+        1e3 * call["device_s"] / call["calls"])
 
 
 def test_a_program_without_its_spans_reads_nothing():

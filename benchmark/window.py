@@ -32,9 +32,19 @@ class Sink:
     card), filled by non-blocking copies behind an event. ``outputs`` maps
     a call's result to the tensors that have to reach the host. ``keep`` of
     the finished frames, drawn by reservoir sampling from ``rng``, keep
-    their buffers for the check; the rest go back to the pool."""
+    their buffers for the check; the rest go back to the pool.
 
-    def __init__(self, outputs, keep: int, rng: np.random.Generator, device: torch.device):
+    For a system that carries state from call to call, ``snapshot`` is its
+    ``snapshot()``: copies on the device, taken without a host wait, of
+    everything the next call reads from earlier ones. The sink takes one
+    when it is made (``start``, the state before the first call) and one
+    after each call, as the call's outputs are put; a frame's token holds
+    the snapshot before its call and the one after it, and a kept frame
+    keeps both for the check (``states_kept``). Without ``snapshot`` a
+    token holds none."""
+
+    def __init__(self, outputs, keep: int, rng: np.random.Generator, device: torch.device,
+                 snapshot=None):
         self.outputs = outputs
         self.cuda = device.type == "cuda"
         self.pool: list[tuple] = []
@@ -42,6 +52,10 @@ class Sink:
         self.keep, self.rng = keep, rng
         self.kept: dict[int, tuple] = {}
         self.seen = 0
+        self.snapshot = snapshot
+        self.kept_states: dict[int, tuple] = {}
+        self.start = snapshot() if snapshot is not None else None
+        self._state = self.start
 
     def _buffer(self, tensors) -> tuple:
         if self.shapes is None:  # the first frame sizes a pool that a frame in flight never empties
@@ -57,11 +71,15 @@ class Sink:
         buf = self._buffer(tensors)
         for b, t in zip(buf, tensors):
             b.copy_(t, non_blocking=self.cuda)
+        states = None
+        if self.snapshot is not None:
+            states = (self._state, self.snapshot())
+            self._state = states[1]
         event = None
         if self.cuda:
             event = torch.cuda.Event()
             event.record()
-        return buf, event
+        return buf, event, states
 
     @staticmethod
     def wait(token) -> None:
@@ -77,18 +95,28 @@ class Sink:
         buf = token[0]
         self.seen += 1
         if len(self.kept) < self.keep:
-            self.kept[index] = buf
+            self._keep(index, token)
             return
         j = int(self.rng.integers(0, self.seen))
         if j < self.keep:
             victim = sorted(self.kept)[j]
             self.pool.append(self.kept.pop(victim))
-            self.kept[index] = buf
+            self.kept_states.pop(victim, None)
+            self._keep(index, token)
         else:
             self.pool.append(buf)
 
+    def _keep(self, index: int, token) -> None:
+        self.kept[index] = token[0]
+        if token[2] is not None:
+            self.kept_states[index] = token[2]
+
     def outputs_kept(self) -> dict[int, tuple]:
         return {i: tuple(b.numpy().copy() for b in buf) for i, buf in sorted(self.kept.items())}
+
+    def states_kept(self) -> dict[int, tuple]:
+        """Each kept frame's (snapshot before its call, snapshot after it)."""
+        return dict(sorted(self.kept_states.items()))
 
 
 ATTEMPTS = 3  # profiles a traced run tries, in set-up and in the window, before it gives up
